@@ -1,0 +1,36 @@
+"""Public GEMM wrapper: the counterpart of
+``repro.kernels.streamed_matmul.ops.matmul``.  The kernel masks ragged
+edges itself, so nothing is padded."""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import _build
+from repro_torch.kernels.streamed_matmul.kernel import DTYPES, matmul_cuda
+from repro_torch.kernels.streamed_matmul.ref import matmul_ref
+
+
+def matmul(a, b, *, use_kernel: bool = True):
+    """(M, K) @ (K, N) with an fp32 accumulator; the result has a's dtype.
+
+    CPU tensors, or ``use_kernel=False``, take the plain PyTorch version.
+    CUDA tensors go to the kernel, which takes contiguous fp32 or bf16
+    operands of one dtype, or raise.  ``matmul.launches`` counts the
+    kernel's launches.
+    """
+    if a.ndim != 2 or b.ndim != 2 or a.shape[1] != b.shape[0]:
+        raise ValueError(f"matmul: cannot multiply {tuple(a.shape)} by "
+                         f"{tuple(b.shape)}")
+    if not use_kernel or a.device.type == "cpu":
+        return matmul_ref(a, b)
+    _build.require("matmul", (a, b), DTYPES)
+    if a.dtype != b.dtype:
+        raise TypeError(f"matmul: operands differ in dtype: {a.dtype}, {b.dtype}")
+    c = torch.empty((a.shape[0], b.shape[1]), dtype=a.dtype, device=a.device)
+    if c.numel():
+        matmul_cuda(a, b, c)
+        matmul.launches += 1
+    return c
+
+
+matmul.launches = 0
