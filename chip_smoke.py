@@ -17,7 +17,23 @@
    version and, where one PyTorch call computes the same function, that call
    are timed with CUDA events (one warm-up, median of 3) beside the kernel's
    bound from the H100's published peaks.
-4. Runs CG, Graph500 and the FFT convolutions at their default sizes.
+4. Holds the flash and paged attention kernels against their plain
+   versions at the shapes of the repository's kernel tests, then drives the
+   attention paths at full width, each kernel's launch counter set to 0
+   just before its path and read just after: the paged-decode demo's
+   ``paged_decode`` at qwen2-72b / decode_32k (B=128, 512 pages of 64 a
+   sequence, a 17.2 GB bf16 pool), the paged kernel again over a randomly
+   permuted block table with random lengths, and bf16 flash prefill at
+   S=32,768 for qwen2-7b (causal) and mixtral-8x22b (window 4096).  The
+   paged output is held against the plain version in groups of 8
+   sequences, the flash output against the port's blocked
+   ``attention_flash`` (the dense reference would need a 120 GB score
+   tensor), both run in fp32 on the same values, and each limit is shown
+   to catch a window or a sequence one KV tile short.  Times as in 3; for
+   flash the library time is ``scaled_dot_product_attention``, which the
+   port never calls.
+5. Runs CG, Graph500 and the FFT convolutions at their default sizes, and
+   the kernel timing rows of ``repro_torch.bench.lm_bench``.
 
 Prints a ``{"kernels": [...]}`` line, then as its last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -53,6 +69,7 @@ DEVICE = "cuda"
 # Published H100 SXM peaks (NVIDIA data sheet) at its 700 W limit.
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FP32_FLOPS = 67e12     # outside the tensor cores
+PEAK_BF16_FLOPS = 989e12    # dense tensor cores
 BS_OPS_PER_OPTION = 60      # the BS app's model (FLOPS_PER_ELEM)
 FDTD_OPS_PER_CELL = 29      # c0*x, then 4 x (5 adds, 1 mul, 1 add)
 
@@ -63,7 +80,31 @@ SOURCES = {
                "src/repro/kernels/streamed_matmul/kernel.py:17"),
     "fdtd3d": ("src/repro_torch/kernels/csrc/fdtd3d.cu",
                "src/repro/kernels/fdtd3d/kernel.py:24"),
+    "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
+                        "src/repro/kernels/flash_attention/kernel.py:26"),
+    "paged_attention": ("src/repro_torch/kernels/csrc/paged_attention.cu",
+                        "src/repro/kernels/paged_attention/kernel.py:27"),
 }
+
+# Attention at full width (src/repro/configs, configs/shapes.py): paged
+# decode at qwen2-72b / decode_32k with the demo's page size, flash prefill
+# at prefill_32k (one 32k prompt a call), all bf16.
+PAGED_MODEL, PAGED_B, PAGED_PAGES, PAGED_PSZ = "qwen2-72b", 128, 512, 64
+PAGED_CHECK_GROUP = 8       # sequences per plain-version call
+FLASH_S = 32_768
+FLASH_CASES = (("qwen2-7b", None), ("mixtral-8x22b", 4096))
+FLASH_CHECK_BLOCK = 512     # KV block of the plain attention_flash
+FAULT_TILE = 64             # the flash kernel's KV tile
+# bf16 at the test shapes, the JAX test's limit: the plain versions round
+# scores or p to bf16 before a product, the kernels keep them in fp32
+# (tests/test_torch_attention_kernels.py)
+BF16_ATOL, BF16_RTOL = 3e-2, 2.0**-6
+# bf16 at full width, against the plain version run in fp32 on the same
+# values: the kernels compute in fp32, so their one error is the rounding
+# of the output to bf16 (at most 2^-8 of |out|).  Over the 4k-32k
+# positions a row attends, |out| of N(0, 1) data is about 0.01-0.03, so
+# atol stays two orders below it.
+FULL_ATOL, FULL_RTOL = 1e-4, 2.0**-7
 
 
 class Smoke:
@@ -75,29 +116,48 @@ class Smoke:
         self.apps = apps
         self.counters = {"black_scholes": kernels.black_scholes,
                          "matmul": kernels.matmul,
-                         "fdtd3d": kernels.fdtd3d_step}
+                         "fdtd3d": kernels.fdtd3d_step,
+                         "flash_attention": kernels.flash_attention,
+                         "paged_attention": kernels.paged_attention}
         self.failures: list[str] = []
         self.rows: list[dict] = []
         self.power_limit = "unknown"
 
     # -- helpers ---------------------------------------------------------
 
-    def check(self, label, got, want, atol, rtol=0.0) -> float:
-        """Record whether |got - want| <= atol + rtol*|want| everywhere and
-        every value is finite; return the largest |got - want|."""
-        torch = self.torch
+    @staticmethod
+    def compare(got, want, atol, rtol) -> tuple[float, int, float]:
+        """(largest |got - want|, how many elements exceed atol + rtol*|want|,
+        mean |want|)."""
         err = got.float() - want.float()
         err.abs_()
         max_err = err.max().item() if err.numel() else 0.0
-        limit = want.float().abs().mul_(rtol).add_(atol)
-        bad = int((err > limit).sum().item())
-        finite = bool(torch.isfinite(got).all().item())
+        limit = want.float().abs()                    # a copy: want stays as it was
+        mean_want = limit.mean().item() if limit.numel() else 0.0
+        limit.mul_(rtol).add_(atol)
+        return max_err, int((err > limit).sum().item()), mean_want
+
+    def check(self, label, got, want, atol, rtol=0.0) -> float:
+        """Record whether |got - want| <= atol + rtol*|want| everywhere and
+        every value is finite; return the largest |got - want|."""
+        max_err, bad, mean_want = self.compare(got, want, atol, rtol)
+        finite = bool(self.torch.isfinite(got).all().item())
         ok = bad == 0 and finite and got.shape == want.shape
         print(f"check {label}: max_abs_err={max_err:.3e} atol={atol:.3e} "
-              f"rtol={rtol:g} {'ok' if ok else f'FAIL ({bad} out of tolerance, finite={finite})'}")
+              f"rtol={rtol:g} mean_abs_want={mean_want:.3e} "
+              f"{'ok' if ok else f'FAIL ({bad} out of tolerance, finite={finite})'}")
         if not ok:
             self.failures.append(label)
         return max_err
+
+    def expect_caught(self, label, fault, want, atol, rtol):
+        """Record whether the limit rejects ``fault``, the plain output of a
+        deliberately wrong computation, against ``want``."""
+        max_err, bad, _ = self.compare(fault, want, atol, rtol)
+        print(f"check {label}: {bad} of {want.numel()} elements out of tolerance "
+              f"(max_abs_err={max_err:.3e}) {'ok' if bad else 'FAIL (not caught)'}")
+        if not bad:
+            self.failures.append(label)
 
     def expect(self, label, cond: bool):
         print(f"check {label}: {'ok' if cond else 'FAIL'}")
@@ -147,14 +207,15 @@ class Smoke:
         return t if dtype is None else t.to(dtype)
 
     @staticmethod
-    def bound(nbytes: float, ops: float) -> tuple[float, str]:
+    def bound(nbytes: float, ops: float, peak_flops: float) -> tuple[float, str]:
         by_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-        by_ops = ops / PEAK_FP32_FLOPS * 1e3
+        by_ops = ops / peak_flops * 1e3
         return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
 
     def record(self, name, *, launches, max_err, ms, plain_ms, library_ms,
-               nbytes, ops, shape, tol):
-        bound_ms, bound_by = self.bound(nbytes, ops)
+               nbytes, ops, shape, tol, peak_flops=PEAK_FP32_FLOPS, append=True,
+               **extra) -> dict:
+        bound_ms, bound_by = self.bound(nbytes, ops, peak_flops)
         peak = self.torch.cuda.max_memory_allocated()
         share = bound_ms / ms
         source, replaces = SOURCES[name]
@@ -164,13 +225,16 @@ class Smoke:
               f"H100 SXM peaks at 700 W, this card's limit {self.power_limit}) "
               f"share_of_bound={share:.3f} max_memory_allocated={peak} "
               f"launches={launches}")
-        self.rows.append({
+        row = {
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches, "max_abs_err": max_err,
             "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
             "bound_by": bound_by, "library_ms": library_ms, "share": share,
             "shape": list(shape), "tolerance": tol,
-            "max_memory_allocated": peak})
+            "max_memory_allocated": peak, **extra}
+        if append:
+            self.rows.append(row)
+        return row
 
     def start_app(self, label):
         print(f"== main path: {label}")
@@ -326,6 +390,251 @@ class Smoke:
         del grid, coeffs
         self.free()
 
+    # -- attention -------------------------------------------------------
+
+    def attention_checks(self):
+        """Flash and paged attention against their plain versions at the
+        kernel tests' shapes (tests/test_kernels.py:84-148), plus ragged and
+        cross lengths, Dh=128, a permuted block table and a zero length."""
+        torch, k = self.torch, self.kernels
+        print("== attention kernel checks at test shapes")
+        tols = ((torch.float32, 2e-3, 0.0), (torch.bfloat16, BF16_ATOL, BF16_RTOL))
+        for hq, hkv in ((4, 4), (4, 2), (8, 1)):
+            for window in (None, 64):
+                for dtype, atol, rtol in tols:
+                    q = self.rand((2, 256, hq, 32), dtype=dtype)
+                    kk, v = (self.rand((2, 256, hkv, 32), dtype=dtype) for _ in range(2))
+                    self.check(f"flash hq={hq} hkv={hkv} window={window} {dtype}",
+                               k.flash_attention(q, kk, v, window=window),
+                               k.flash_attention(q, kk, v, window=window, use_kernel=False),
+                               atol, rtol)
+        for sq, skv, hq, hkv, dh, window, causal in (
+                (128, 256, 4, 2, 32, None, True), (100, 256, 4, 2, 32, None, True),
+                (77, 200, 4, 2, 32, 64, True), (1, 300, 8, 2, 64, None, True),
+                (300, 300, 4, 2, 16, None, False), (200, 200, 28, 4, 128, None, True),
+                (200, 200, 48, 8, 128, 50, True)):
+            for dtype, atol, rtol in tols:
+                q = self.rand((1, sq, hq, dh), dtype=dtype)
+                kk, v = (self.rand((1, skv, hkv, dh), dtype=dtype) for _ in range(2))
+                kw = dict(causal=causal, window=window)
+                self.check(f"flash Sq={sq} Skv={skv} hq={hq} hkv={hkv} Dh={dh} "
+                           f"window={window} causal={causal} {dtype}",
+                           k.flash_attention(q, kk, v, **kw),
+                           k.flash_attention(q, kk, v, use_kernel=False, **kw), atol, rtol)
+        self.expect_raise("flash rejects Dh=48",
+                          lambda: k.flash_attention(*(self.rand((1, 8, 2, 48)),) * 3),
+                          ValueError)
+
+        for psz, pages in ((16, 4), (32, 8)):
+            for hq, hkv, dh in ((8, 2, 32), (64, 8, 128)):
+                for dtype, atol, rtol in tols:
+                    B = 3
+                    npages = pages * B + 2
+                    kp, vp = (self.rand((npages, psz, hkv, dh), dtype=dtype) for _ in range(2))
+                    q = self.rand((B, hq, dh), dtype=dtype)
+                    bt = torch.randperm(npages, device=DEVICE)[:B * pages].reshape(
+                        B, pages).to(torch.int32)
+                    sl = torch.tensor([psz * pages, psz * pages - 5, 3],
+                                      dtype=torch.int32, device=DEVICE)
+                    self.check(f"paged psz={psz} pages={pages} hq={hq} hkv={hkv} "
+                               f"Dh={dh} {dtype}", k.paged_attention(q, kp, vp, bt, sl),
+                               k.paged_attention(q, kp, vp, bt, sl, use_kernel=False),
+                               atol, rtol)
+        B, hq, hkv, dh, psz, pages = 2, 4, 2, 16, 8, 4
+        npages = B * pages
+        kp, vp = (self.rand((npages, psz, hkv, dh)) for _ in range(2))
+        q = self.rand((B, hq, dh))
+        bt = torch.arange(npages, dtype=torch.int32, device=DEVICE).reshape(B, pages)
+        sl = torch.tensor([psz * pages, psz * pages - 3], dtype=torch.int32, device=DEVICE)
+        out1 = k.paged_attention(q, kp, vp, bt, sl)
+        for trial in range(5):
+            perm = torch.randperm(npages, device=DEVICE)
+            inv = torch.argsort(perm).to(torch.int32)
+            self.check(f"paged block-table permutation {trial}", out1,
+                       k.paged_attention(q, kp[perm], vp[perm], inv[bt.long()], sl), 1e-4)
+        sl0 = torch.tensor([0, 17], dtype=torch.int32, device=DEVICE)
+        out = k.paged_attention(q, kp, vp, bt, sl0)
+        self.check("paged zero-length sequence gives zeros", out[0],
+                   torch.zeros_like(out[0]), 0.0)
+        self.check("paged ragged length", out,
+                   k.paged_attention(q, kp, vp, bt, sl0, use_kernel=False), 2e-3)
+        self.expect_raise("paged rejects an int64 block table",
+                          lambda: k.paged_attention(q, kp, vp, bt.long(), sl), TypeError)
+        torch.cuda.synchronize()
+
+    def paged_plain(self, q, kp, vp, bt, sl, widen=False):
+        """The plain paged version in groups of PAGED_CHECK_GROUP sequences:
+        the whole batch at once would need a ~137 GB gathered fp32 copy.
+        With ``widen``, each group's pages are gathered and widened to fp32,
+        with its q, and read through an identity block table (the whole
+        pool in fp32 would not fit beside the bf16 one)."""
+        torch, k = self.torch, self.kernels
+        outs = []
+        for i in range(0, q.shape[0], PAGED_CHECK_GROUP):
+            qg, ktab, vtab, btg = (q[i:i + PAGED_CHECK_GROUP], kp, vp,
+                                   bt[i:i + PAGED_CHECK_GROUP])
+            if widen:
+                idx = btg.flatten().long()
+                qg, ktab, vtab = qg.float(), kp[idx].float(), vp[idx].float()
+                btg = torch.arange(idx.numel(), dtype=torch.int32,
+                                   device=DEVICE).reshape(btg.shape)
+            outs.append(k.paged_attention(qg, ktab, vtab, btg,
+                                          sl[i:i + PAGED_CHECK_GROUP], use_kernel=False))
+            del qg, ktab, vtab
+        return torch.cat(outs)
+
+    def paged_path(self, paged_decode):
+        """The paged-decode demo at qwen2-72b / decode_32k width."""
+        torch, k = self.torch, self.kernels
+        self.start_app(f"paged_decode {PAGED_MODEL} B={PAGED_B} pages={PAGED_PAGES} "
+                       f"psz={PAGED_PSZ} bf16")
+        res = paged_decode(PAGED_MODEL, batch=PAGED_B, pages=PAGED_PAGES,
+                           page_size=PAGED_PSZ, dtype=torch.bfloat16, device=DEVICE)
+        torch.cuda.synchronize()
+        launches = self.launched("paged_attention")
+        q, kp, vp, bt, sl = (res[n] for n in ("q", "k_pool", "v_pool", "block_table",
+                                                "seq_lens"))
+        pool_bytes = 2 * kp.numel() * kp.element_size()
+        print(f"paged pools: {pool_bytes} bytes of K and V, lengths "
+              f"{sorted(set(sl.tolist()))}")
+        want = self.paged_plain(q, kp, vp, bt, sl, widen=True)
+        err = self.check("paged_decode out (full width) vs fp32 plain", res["out"], want,
+                         FULL_ATOL, FULL_RTOL)
+        del res
+        self.free()
+        self.expect_caught("the limit catches each sequence one page short",
+                           self.paged_plain(q, kp, vp, bt, (sl - PAGED_PSZ).clamp_min(0),
+                                            widen=True),
+                           want, FULL_ATOL, FULL_RTOL)
+        del want
+        self.free()
+
+        # the kernel again, over a random permutation of the pool's pages,
+        # with random lengths in [0, 32768] (one 0, one full row)
+        g = torch.Generator(device=DEVICE).manual_seed(1)
+        npages, span = kp.shape[0], PAGED_PAGES * PAGED_PSZ
+        bt_perm = torch.randperm(npages, generator=g, device=DEVICE).to(
+            torch.int32).reshape(PAGED_B, PAGED_PAGES)
+        sl_rand = torch.randint(0, span + 1, (PAGED_B,), generator=g, device=DEVICE,
+                                dtype=torch.int32)
+        sl_rand[0], sl_rand[1] = 0, span
+        out = k.paged_attention(q, kp, vp, bt_perm, sl_rand)
+        err = max(err, self.check("paged permuted block table, random lengths vs fp32 plain",
+                                  out, self.paged_plain(q, kp, vp, bt_perm, sl_rand,
+                                                        widen=True),
+                                  FULL_ATOL, FULL_RTOL))
+        self.check("paged zero-length row gives zeros (full width)", out[0],
+                   torch.zeros_like(out[0]), 0.0)
+        del out
+        self.free()
+
+        # time the demo's call; the bound counts the live rows only
+        hq, hkv, dh = q.shape[1], kp.shape[2], kp.shape[3]
+        live = int(sl.clamp(0, span).sum().item())
+        pages_read = int(((sl.clamp(0, span) + PAGED_PSZ - 1) // PAGED_PSZ).sum().item())
+        nbytes = (2 * live * hkv * dh * 2      # K and V rows, bf16
+                  + 2 * 2 * q.numel()          # q in, out back
+                  + 4 * pages_read + 4 * PAGED_B)
+        ms = self.time_ms(lambda: k.paged_attention(q, kp, vp, bt, sl))
+        plain = self.time_ms(lambda: self.paged_plain(q, kp, vp, bt, sl), reps=1)
+        self.record("paged_attention", launches=launches, max_err=err, ms=ms,
+                    plain_ms=plain, library_ms=None, nbytes=nbytes,
+                    ops=4 * hq * dh * live, peak_flops=PEAK_BF16_FLOPS,
+                    shape=(PAGED_B, hq, hkv, dh, PAGED_PAGES, PAGED_PSZ),
+                    tol=[FULL_ATOL, FULL_RTOL], pool_bytes=pool_bytes,
+                    live_positions=live,
+                    library_note="null: no single PyTorch call attends through a "
+                                 "block table without a gathered copy of the pool")
+        del q, kp, vp, bt, sl, bt_perm, sl_rand
+        self.free()
+
+    def flash_path(self, get_config, attention):
+        """bf16 flash prefill at S=32,768 for qwen2-7b (causal) and
+        mixtral-8x22b (sliding window)."""
+        torch, k = self.torch, self.kernels
+        attention_flash = attention.attention_flash
+        g = torch.Generator(device=DEVICE).manual_seed(2)
+        inputs = []
+        for model, window in FLASH_CASES:
+            cfg = get_config(model)
+            assert cfg.sliding_window == window, (model, cfg.sliding_window)
+            hq, hkv, dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+            inputs.append([torch.randn((1, FLASH_S, h, dh), generator=g, device=DEVICE,
+                                       dtype=torch.bfloat16) for h in (hq, hkv, hkv)])
+        self.start_app(f"flash_attention prefill S={FLASH_S} bf16: "
+                       + ", ".join(f"{m} window={w}" for m, w in FLASH_CASES))
+        outs = [k.flash_attention(q, kk, v, window=window)
+                for (q, kk, v), (_, window) in zip(inputs, FLASH_CASES)]
+        torch.cuda.synchronize()
+        launches = self.launched("flash_attention")
+
+        rows = []
+        for (q, kk, v), out, (model, window) in zip(inputs, outs, FLASH_CASES):
+            hq, dh = q.shape[2], q.shape[3]
+            wide = [x.float() for x in (q, kk, v)]
+            want = attention_flash(*wide, window=window, block=FLASH_CHECK_BLOCK)
+            err = self.check(f"flash {model} window={window} (full width) vs fp32 "
+                             "attention_flash", out, want, FULL_ATOL, FULL_RTOL)
+            # a fault of one KV tile: the diagonal moved a tile left, or the
+            # window a tile short
+            fault = ({"q_offset": -FAULT_TILE} if window is None
+                     else {"window": window - FAULT_TILE})
+            self.expect_caught(f"the limit catches {model} with {fault}",
+                               attention_flash(*wide, block=FLASH_CHECK_BLOCK,
+                                               **{"window": window, **fault}),
+                               want, FULL_ATOL, FULL_RTOL)
+            del wide, want
+            self.free()
+            i = torch.arange(FLASH_S, dtype=torch.float64)
+            pairs = int((i + 1).clamp(max=window or FLASH_S).sum().item())
+            nbytes = 2 * (2 * q.numel() + 2 * kk.numel())
+            ms = self.time_ms(lambda: k.flash_attention(q, kk, v, window=window))
+            plain = self.time_ms(lambda: attention_flash(q, kk, v, window=window,
+                                                         block=FLASH_CHECK_BLOCK), reps=1)
+            library, note = self.sdpa_ms(q, kk, v, window, attention.causal_mask)
+            rows.append(self.record(
+                "flash_attention", launches=launches, max_err=err, ms=ms,
+                plain_ms=plain, library_ms=library, nbytes=nbytes,
+                ops=4 * hq * dh * pairs, peak_flops=PEAK_BF16_FLOPS,
+                shape=(1, FLASH_S, hq, kk.shape[2], dh), tol=[FULL_ATOL, FULL_RTOL],
+                append=False, model=model, window=window, pairs_in_band=pairs,
+                library_note=note))
+            self.free()
+        del inputs, outs
+        self.free()
+        self.rows.append({**rows[0], "window_case": rows[1]})
+
+    def sdpa_ms(self, q, k, v, window, causal_mask) -> tuple[float, str]:
+        """Time of one scaled_dot_product_attention call (GQA) on the same
+        inputs in its (B, H, S, D) layout, fused backends only: the math
+        backend would build an S x S score tensor.  The transposed copies
+        and, for a window, the additive band mask (0 in the band, -inf
+        outside, in the inputs' dtype: 2 GB at S = 32k in bf16) are made
+        outside the timing."""
+        torch = self.torch
+        from torch.nn.attention import SDPBackend, sdpa_kernel
+
+        F = torch.nn.functional
+        qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+        if window is None:
+            kw, note = {"is_causal": True}, "is_causal=True"
+        else:
+            band = causal_mask(FLASH_S, FLASH_S, window=window, device=DEVICE)
+            kw = {"attn_mask": torch.zeros(band.shape, dtype=q.dtype, device=DEVICE)
+                  .masked_fill_(~band, float("-inf"))}
+            note = f"attn_mask=additive {q.dtype} band of {FLASH_S} x {FLASH_S}"
+            del band
+        with sdpa_kernel([SDPBackend.FLASH_ATTENTION, SDPBackend.CUDNN_ATTENTION,
+                          SDPBackend.EFFICIENT_ATTENTION]):
+            ms = self.time_ms(lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, enable_gqa=True, **kw))
+        return ms, f"scaled_dot_product_attention({note}, enable_gqa=True), fused backends"
+
+    def kernel_timing_rows(self, kernel_rows):
+        print("== kernel timing rows (repro_torch.bench.lm_bench.kernel_rows)")
+        for row in kernel_rows(DEVICE):
+            print(row)
+
     def plain_apps(self):
         """CG, Graph500 and the FFT convolutions at their default sizes."""
         apps = self.apps
@@ -371,6 +680,10 @@ def main() -> int:
         return 2
     try:
         from repro_torch import kernels
+        from repro_torch.bench.lm_bench import kernel_rows
+        from repro_torch.configs import get_config
+        from repro_torch.examples.oversubscribe_demo import paged_decode
+        from repro_torch.models import attention
         from repro_torch.umbench.apps import (bfs, black_scholes, cg, conv_fft,
                                               fdtd3d, matmul)
     except ImportError as e:
@@ -383,8 +696,12 @@ def main() -> int:
     t0 = time.perf_counter()
     smoke.header()
     smoke.kernel_checks()
+    smoke.attention_checks()
     smoke.main_path()
+    smoke.paged_path(paged_decode)
+    smoke.flash_path(get_config, attention)
     smoke.plain_apps()
+    smoke.kernel_timing_rows(kernel_rows)
     print(json.dumps({"kernels": smoke.rows}))
     print(f"chip_smoke: {time.perf_counter() - t0:.1f} s")
     if smoke.failures:

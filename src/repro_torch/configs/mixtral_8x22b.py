@@ -1,0 +1,21 @@
+"""Mixtral-8x22B [arXiv:2401.04088; hf] — MoE 8 experts top-2, sliding
+window attention."""
+from repro_torch.configs.base import ModelConfig
+
+CONFIG = ModelConfig(
+    name="mixtral-8x22b",
+    family="moe",
+    num_layers=56,
+    d_model=6144,
+    num_heads=48,
+    num_kv_heads=8,
+    d_ff=16384,
+    vocab_size=32768,
+    activation="swiglu",
+    norm="rmsnorm",
+    rope="rope",
+    num_experts=8,
+    top_k=2,
+    sliding_window=4096,
+    tie_embeddings=False,
+)

@@ -1,16 +1,19 @@
 """Build the port's CUDA kernels and call them through a plain C interface.
 
 All of ``csrc/*.cu`` is compiled at first use, from this package's sources
-only, by one ``nvcc`` call into one shared library::
+only, by one ``nvcc`` process per source, all started together, and then
+linked into one shared library::
 
-    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \\
-         -Xcompiler -fPIC -o build/torch_kernels/um_kernels-<hash>.so csrc/*.cu
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 \\
+         -Xcompiler -fPIC -c csrc/<name>.cu -o <name>.o     # each source
+    nvcc -shared -o build/torch_kernels/um_kernels-<hash>.so *.o
 
 The file is named by a hash of the sources and the flags, so a later call,
 in this process or another, loads it without building again.  ``ptxas -v``
-(registers, shared memory and spills of each kernel) goes to a ``.log``
-beside it.  Each C entry point launches on the stream it is given and
-returns ``cudaGetLastError()``; ``launch`` raises if that is not 0.
+(registers, shared memory and spills of each kernel) and the compilers'
+output go to a ``.log`` beside it.  Each C entry point launches on the
+stream it is given and returns ``cudaGetLastError()``; ``launch`` raises if
+that is not 0.
 """
 from __future__ import annotations
 
@@ -28,7 +31,8 @@ import torch
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+LINK_FLAGS = ("-shared",)
 
 # ctypes argument types: every pointer and the stream are c_void_p (a plain
 # int would be cut to 32 bits), every size is c_int64.
@@ -54,7 +58,7 @@ def nvcc() -> str:
 def library_path() -> Path:
     """Where the library built from the current sources lives."""
     h = hashlib.sha256()
-    for flag in NVCC_FLAGS:
+    for flag in (*NVCC_FLAGS, "--link", *LINK_FLAGS):
         h.update(flag.encode() + b"\0")
     for src in sorted(CSRC.glob("*.cu*")):
         h.update(src.name.encode() + b"\0" + src.read_bytes() + b"\0")
@@ -66,21 +70,44 @@ def library() -> ctypes.CDLL:
     """The kernels' shared library, built first if it is not there yet."""
     so = library_path()
     if not so.exists():
-        compiler = nvcc()
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = so.with_name(f"{so.stem}.{os.getpid()}.tmp.so")
-        cmd = [compiler, *NVCC_FLAGS, "-o", str(tmp),
-               *map(str, sorted(CSRC.glob("*.cu")))]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        so.with_suffix(".log").write_text(proc.stdout + proc.stderr)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed with code {proc.returncode}:\n"
-                               f"{proc.stderr[-6000:]}")
-        os.replace(tmp, so)
+        _build(nvcc(), so)
     lib = ctypes.CDLL(str(so))
     lib.um_error_string.argtypes = [ctypes.c_int]
     lib.um_error_string.restype = ctypes.c_char_p
     return lib
+
+
+def _build(compiler: str, so: Path) -> None:
+    """Compile every source at once, one nvcc process each, then link."""
+    work = so.with_name(f"{so.stem}.{os.getpid()}.tmp")
+    work.mkdir(parents=True, exist_ok=True)
+    sources = sorted(CSRC.glob("*.cu"))
+    objects = [work / f"{src.stem}.o" for src in sources]
+    logs = [work / f"{src.stem}.log" for src in sources]
+    procs = []
+    for src, obj, log in zip(sources, objects, logs):
+        with open(log, "w") as out:
+            procs.append(subprocess.Popen(
+                [compiler, *NVCC_FLAGS, "-c", str(src), "-o", str(obj)],
+                stdout=out, stderr=subprocess.STDOUT))
+    failed = [f"{src.name}: nvcc exited with code {code}\n{log.read_text()[-3000:]}"
+              for src, log, code in zip(sources, logs, [p.wait() for p in procs])
+              if code != 0]
+    text = "".join(f"== {src.name}\n{log.read_text()}" for src, log in zip(sources, logs))
+    if not failed:
+        tmp = work / so.name
+        link = subprocess.run([compiler, *LINK_FLAGS, "-o", str(tmp), *map(str, objects)],
+                              capture_output=True, text=True)
+        text += f"== link\n{link.stdout}{link.stderr}"
+        if link.returncode != 0:
+            failed.append(f"link: nvcc exited with code {link.returncode}\n"
+                          f"{link.stderr[-3000:]}")
+        else:
+            os.replace(tmp, so)
+    so.with_suffix(".log").write_text(text)
+    shutil.rmtree(work, ignore_errors=True)
+    if failed:
+        raise RuntimeError("building the CUDA kernels failed:\n" + "\n".join(failed))
 
 
 @functools.cache

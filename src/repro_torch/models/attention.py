@@ -1,0 +1,194 @@
+"""Attention: GQA with causal / sliding-window masks; prefill and decode.
+
+The counterpart of ``repro.models.attention``: plain PyTorch, and the
+plain versions that the port's flash and paged attention kernels are held
+against.  Layouts are the JAX package's: q (B,Sq,Hq,Dh), k/v
+(B,Skv,Hkv,Dh).  Softmax is fp32, with the same casts as the JAX side:
+scores are computed in the input dtype and then taken to fp32, and the
+probabilities are cast to ``v.dtype`` before the PV product.
+
+Decode is split-KV (flash-decoding style): ``decode_attention_partial``
+gives a shard's (numerator, denominator, running max), and
+``combine_decode_partials`` merges them.  The merge over a mesh axis waits
+for the port's ``torch.distributed`` slice, as does the pure-FSDP
+query-chunk branch of ``attention``.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+
+NEG_INF = -1e30
+
+
+def repeat_kv(k: torch.Tensor, groups: int) -> torch.Tensor:
+    """(B,S,Hkv,Dh) -> (B,S,Hkv*groups,Dh)."""
+    if groups == 1:
+        return k
+    b, s, h, d = k.shape
+    return k[:, :, :, None, :].expand(b, s, h, groups, d).reshape(b, s, h * groups, d)
+
+
+def causal_mask(q_len: int, kv_len: int, *, window: int | None = None,
+                q_offset=0, device=None) -> torch.Tensor:
+    """(q_len, kv_len) bool mask; True = attend."""
+    qi = torch.arange(q_len, device=device)[:, None] + q_offset
+    kj = torch.arange(kv_len, device=device)[None, :]
+    m = kj <= qi
+    if window is not None:
+        m = m & (kj > qi - window)
+    return m
+
+
+def _attention_dense(q, k, v, *, causal, window, q_offset, mask, scale):
+    """Grouped-GQA dense attention with no repeat_kv copy: scores are
+    computed per kv-head group, (B, Hkv, G, Sq, Skv)."""
+    b, sq, hq, dh = q.shape
+    hkv = k.shape[2]
+    g = hq // hkv
+    qg = q.reshape(b, sq, hkv, g, dh)
+    s = torch.einsum("bqkgd,bskd->bkgqs", qg, k).float() * scale
+    if causal:
+        m = causal_mask(sq, k.shape[1], window=window, q_offset=q_offset,
+                        device=q.device)
+        s = torch.where(m[None, None, None], s, NEG_INF)
+    if mask is not None:
+        s = torch.where(mask, s, NEG_INF)
+    p = torch.softmax(s, dim=-1).to(q.dtype)
+    o = torch.einsum("bkgqs,bskd->bqkgd", p, v)
+    return o.reshape(b, sq, hq, dh)
+
+
+def attention(q, k, v, *, causal: bool = True, window: int | None = None,
+              q_offset=0, mask=None, softmax_scale: float | None = None):
+    """q: (B,Sq,Hq,Dh), k/v: (B,Skv,Hkv,Dh) -> (B,Sq,Hq,Dh). fp32 softmax.
+
+    The dense path, with the whole (Sq, Skv) score block in memory.
+    """
+    scale = softmax_scale if softmax_scale is not None else 1.0 / math.sqrt(q.shape[-1])
+    return _attention_dense(q, k, v, causal=causal, window=window,
+                            q_offset=q_offset, mask=mask, scale=scale)
+
+
+FLASH_BLOCK = 1024
+
+
+def attention_flash(q, k, v, *, causal: bool = True, window: int | None = None,
+                    q_offset: int = 0, softmax_scale: float | None = None,
+                    block: int = FLASH_BLOCK):
+    """Memory-bounded online-softmax attention (forward only).
+
+    Streams KV in blocks of ``block`` positions with a running (max, sum,
+    acc), grouped GQA: the JAX ``lax.scan`` becomes a Python loop.  Blocks
+    wholly above the causal diagonal or before the window are skipped, as
+    the JAX version's unrolled form skips them; a skipped block would leave
+    the carry unchanged, so the result is the same.
+    """
+    b, sq, hq, dh = q.shape
+    hkv = k.shape[2]
+    g = hq // hkv
+    skv = k.shape[1]
+    scale = softmax_scale if softmax_scale is not None else 1.0 / math.sqrt(dh)
+    block = min(block, skv)
+    nb = -(-skv // block)
+    qg = q.reshape(b, sq, hkv, g, dh).float()
+    qpos = q_offset + torch.arange(sq, device=q.device)
+
+    m = torch.full((b, hkv, g, sq), NEG_INF, dtype=torch.float32, device=q.device)
+    l = torch.zeros((b, hkv, g, sq), dtype=torch.float32, device=q.device)
+    acc = torch.zeros((b, sq, hkv, g, dh), dtype=torch.float32, device=q.device)
+    for j in range(nb):
+        lo, hi = j * block, min((j + 1) * block, skv)
+        if causal and lo > q_offset + sq - 1:
+            continue  # above the diagonal for every query
+        if window is not None and hi - 1 <= q_offset - window:
+            continue  # before the window of every query
+        kj, vj = k[:, lo:hi], v[:, lo:hi]
+        s = torch.einsum("bqkgd,bskd->bkgqs", qg, kj.float()) * scale
+        kpos = torch.arange(lo, hi, device=q.device)
+        mask = torch.ones((sq, hi - lo), dtype=torch.bool, device=q.device)
+        if causal:
+            mask = mask & (kpos[None, :] <= qpos[:, None])
+        if window is not None:
+            mask = mask & (kpos[None, :] > qpos[:, None] - window)
+        s = torch.where(mask, s, NEG_INF)
+        m_new = torch.maximum(m, s.amax(dim=-1))
+        p = torch.where(mask, torch.exp(s - m_new[..., None]), 0.0)
+        del s
+        corr = torch.exp(m - m_new)                   # (B,Hkv,G,Sq)
+        l = l * corr + p.sum(dim=-1)
+        pv = torch.einsum("bkgqs,bskd->bqkgd", p.to(v.dtype), vj)
+        acc = acc * corr.permute(0, 3, 1, 2)[..., None] + pv.float()
+        m = m_new
+    l = l.clamp_min(1e-20).permute(0, 3, 1, 2)[..., None]
+    return (acc / l).reshape(b, sq, hq, dh).to(q.dtype)
+
+
+def decode_attention_partial(q, k, v, valid_mask, softmax_scale: float | None = None):
+    """One-token query against a shard of the KV cache.
+
+    q: (B,Hq,Dh); k/v: (B,Skv,Hkv,Dh); valid_mask: (B,Skv) bool.
+    Returns partials (numerator (B,Hq,Dh) fp32, denominator (B,Hq) fp32,
+    running max (B,Hq) fp32) that combine exactly across shards.
+    """
+    b, hq, dh = q.shape
+    hkv = k.shape[2]
+    k = repeat_kv(k, hq // hkv)
+    v = repeat_kv(v, hq // hkv)
+    scale = softmax_scale if softmax_scale is not None else 1.0 / math.sqrt(dh)
+    logits = torch.einsum("bhd,bkhd->bhk", q, k).float() * scale
+    logits = torch.where(valid_mask[:, None, :], logits, NEG_INF)
+    m = logits.amax(dim=-1)                             # (B,Hq)
+    p = torch.exp(logits - m[..., None])                # (B,Hq,Skv)
+    p = torch.where(valid_mask[:, None, :], p, 0.0)
+    denom = p.sum(dim=-1)                               # (B,Hq)
+    num = torch.einsum("bhk,bkhd->bhd", p.to(v.dtype), v).float()
+    return num, denom, m
+
+
+def combine_decode_partials(num, denom, m, axis_name: str | None):
+    """Combine split-KV partials; with ``axis_name=None`` the partials are
+    the whole cache's.  A combine over a mesh axis (``pmax``/``psum``)
+    waits for the port's ``torch.distributed`` slice."""
+    if axis_name is not None:
+        raise NotImplementedError(
+            "combine_decode_partials over a mesh axis needs the port's "
+            "torch.distributed slice")
+    return num / denom[..., None].clamp_min(1e-20)
+
+
+def decode_attention(q, k_cache, v_cache, cache_len, *, window: int | None = None,
+                     axis_name: str | None = None, seq_offset=0):
+    """Single-step decode attention.
+
+    q: (B,Hq,Dh); caches: (B,Smax,Hkv,Dh); ``seq_offset`` is the cache's
+    first global position.  cache_len: number of valid tokens globally.
+    """
+    smax = k_cache.shape[1]
+    pos = torch.arange(smax, device=q.device)[None, :] + seq_offset
+    valid = pos < cache_len
+    if window is not None:
+        valid = valid & (pos > cache_len - 1 - window)
+    valid = valid.expand(q.shape[0], smax)
+    num, denom, m = decode_attention_partial(q, k_cache, v_cache, valid)
+    return combine_decode_partials(num, denom, m, axis_name).to(q.dtype)
+
+
+def update_kv_cache(k_cache, v_cache, k_new, v_new, cache_len):
+    """Insert one token's K/V at position ``cache_len``.  Caches
+    (B,Smax,Hkv,Dh), new (B,1,Hkv,Dh) or (B,Hkv,Dh).
+
+    Returns new caches and leaves the given ones as they were, as the JAX
+    version does.  As ``lax.dynamic_update_slice`` does, a start past the
+    end is clamped so that the update fits.
+    """
+    if k_new.ndim == 3:
+        k_new, v_new = k_new[:, None], v_new[:, None]
+    n = k_new.shape[1]
+    start = min(max(int(cache_len), 0), k_cache.shape[1] - n)
+    k_cache = k_cache.slice_scatter(k_new.to(k_cache.dtype), dim=1,
+                                    start=start, end=start + n)
+    v_cache = v_cache.slice_scatter(v_new.to(v_cache.dtype), dim=1,
+                                    start=start, end=start + n)
+    return k_cache, v_cache

@@ -148,7 +148,8 @@ def test_library_name_follows_the_sources():
     assert path.parent == REPO / "build" / "torch_kernels"
     assert path == _build.library_path()
     assert sorted(p.name for p in _build.CSRC.glob("*.cu")) == [
-        "black_scholes.cu", "errors.cu", "fdtd3d.cu", "streamed_matmul.cu"]
+        "black_scholes.cu", "errors.cu", "fdtd3d.cu", "flash_attention.cu",
+        "paged_attention.cu", "streamed_matmul.cu"]
 
 
 @pytest.mark.parametrize("dtype", [np.float32, np.int32, jnp.bfloat16])
