@@ -29,9 +29,11 @@
    sequences, the flash output against the port's blocked
    ``attention_flash`` (the dense reference would need a 120 GB score
    tensor), both run in fp32 on the same values, and each limit is shown
-   to catch a window or a sequence one KV tile short.  Times as in 3; for
-   flash the library time is ``scaled_dot_product_attention``, which the
-   port never calls.
+   to catch a one-tile fault: a sequence one page short, the causal
+   diagonal a tile left, the window a tile short, a wrong V tile.  Times
+   as in 3; for flash the library time is the fastest fused backend of
+   ``scaled_dot_product_attention`` that takes the case, which the port
+   never calls.
 5. Runs CG, Graph500 and the FFT convolutions at their default sizes, and
    the kernel timing rows of ``repro_torch.bench.lm_bench``.
 
@@ -94,17 +96,46 @@ PAGED_CHECK_GROUP = 8       # sequences per plain-version call
 FLASH_S = 32_768
 FLASH_CASES = (("qwen2-7b", None), ("mixtral-8x22b", 4096))
 FLASH_CHECK_BLOCK = 512     # KV block of the plain attention_flash
-FAULT_TILE = 64             # the flash kernel's KV tile
+FAULT_TILE = 64             # a one-tile fault: no larger than the kernel's 128-key tile
 # bf16 at the test shapes, the JAX test's limit: the plain versions round
-# scores or p to bf16 before a product, the kernels keep them in fp32
+# scores or p to bf16 before a product, the paged kernel keeps them in fp32
 # (tests/test_torch_attention_kernels.py)
 BF16_ATOL, BF16_RTOL = 3e-2, 2.0**-6
-# bf16 at full width, against the plain version run in fp32 on the same
-# values: the kernels compute in fp32, so their one error is the rounding
-# of the output to bf16 (at most 2^-8 of |out|).  Over the 4k-32k
+# paged bf16 at full width, against the plain version run in fp32 on the
+# same values: the kernel computes in fp32, so its one error is the
+# rounding of the output to bf16 (at most 2^-8 of |out|).  Over the 4k-32k
 # positions a row attends, |out| of N(0, 1) data is about 0.01-0.03, so
 # atol stays two orders below it.
 FULL_ATOL, FULL_RTOL = 1e-4, 2.0**-7
+# flash bf16 at full width, against the plain version run in fp32 on the
+# same values, elementwise atol + rtol |want| + row_rtol rms_row(want), rms
+# over Dh for each (position, head).  The kernel rounds P to bf16 for the
+# P V product, as the JAX reference does (p.astype(v.dtype)): that error
+# scales with the row's norm, not with each element, so near-zero elements
+# of a row that is not near zero need the row term; 2^-8 |want| covers the
+# output's own rounding.  The port's attention_flash in bf16, which rounds
+# P per 64-key tile, passes it on the CPU, and each one-tile fault of the
+# plain version fails it (tests/test_torch_attention_kernels.py).
+FLASH_FULL_ATOL, FLASH_FULL_RTOL, FLASH_FULL_ROW_RTOL = 1e-4, 2.0**-8, 2.0**-6
+
+
+def row_scaled_limit(want, atol, rtol, row_rtol=0.0):
+    """atol + rtol |want| + row_rtol rms(want over its last axis), in fp32;
+    ``want`` stays as it was."""
+    limit = want.float().abs()
+    limit.mul_(rtol).add_(atol)
+    if row_rtol:
+        limit.add_(want.float().square().mean(-1, keepdim=True).sqrt_().mul_(row_rtol))
+    return limit
+
+
+def wrong_v_tile(v, tile=FAULT_TILE):
+    """A copy of v (B, S, H, Dh) whose ``tile`` positions at S/2 hold the
+    ``tile`` positions before them: what a wrong KV tile index reads."""
+    half = v.shape[1] // 2
+    bad = v.clone()
+    bad[:, half:half + tile] = v[:, half - tile:half]
+    return bad
 
 
 class Smoke:
@@ -126,34 +157,38 @@ class Smoke:
     # -- helpers ---------------------------------------------------------
 
     @staticmethod
-    def compare(got, want, atol, rtol) -> tuple[float, int, float]:
-        """(largest |got - want|, how many elements exceed atol + rtol*|want|,
-        mean |want|)."""
+    def compare(got, want, atol, rtol, row_rtol=0.0) -> tuple[float, int, float, float]:
+        """(largest |got - want|, how many elements exceed the limit
+        ``row_scaled_limit``, mean |want|, largest |got - want| / limit)."""
         err = got.float() - want.float()
         err.abs_()
-        max_err = err.max().item() if err.numel() else 0.0
-        limit = want.float().abs()                    # a copy: want stays as it was
-        mean_want = limit.mean().item() if limit.numel() else 0.0
-        limit.mul_(rtol).add_(atol)
-        return max_err, int((err > limit).sum().item()), mean_want
+        if not err.numel():
+            return 0.0, 0, 0.0, 0.0
+        max_err = err.max().item()
+        mean_want = want.float().abs().mean().item()
+        limit = row_scaled_limit(want, atol, rtol, row_rtol)
+        bad = int((err > limit).sum().item())
+        err.div_(limit).nan_to_num_(nan=0.0, posinf=math.inf)  # 0 / 0: no error
+        return max_err, bad, mean_want, err.max().item()
 
-    def check(self, label, got, want, atol, rtol=0.0) -> float:
-        """Record whether |got - want| <= atol + rtol*|want| everywhere and
+    def check(self, label, got, want, atol, rtol=0.0, row_rtol=0.0) -> float:
+        """Record whether |got - want| is within the limit everywhere and
         every value is finite; return the largest |got - want|."""
-        max_err, bad, mean_want = self.compare(got, want, atol, rtol)
+        max_err, bad, mean_want, worst = self.compare(got, want, atol, rtol, row_rtol)
         finite = bool(self.torch.isfinite(got).all().item())
         ok = bad == 0 and finite and got.shape == want.shape
+        row = f" row_rtol={row_rtol:g} worst_err/limit={worst:.3f}" if row_rtol else ""
         print(f"check {label}: max_abs_err={max_err:.3e} atol={atol:.3e} "
-              f"rtol={rtol:g} mean_abs_want={mean_want:.3e} "
+              f"rtol={rtol:g}{row} mean_abs_want={mean_want:.3e} "
               f"{'ok' if ok else f'FAIL ({bad} out of tolerance, finite={finite})'}")
         if not ok:
             self.failures.append(label)
         return max_err
 
-    def expect_caught(self, label, fault, want, atol, rtol):
+    def expect_caught(self, label, fault, want, atol, rtol, row_rtol=0.0):
         """Record whether the limit rejects ``fault``, the plain output of a
         deliberately wrong computation, against ``want``."""
-        max_err, bad, _ = self.compare(fault, want, atol, rtol)
+        max_err, bad, _, _ = self.compare(fault, want, atol, rtol, row_rtol)
         print(f"check {label}: {bad} of {want.numel()} elements out of tolerance "
               f"(max_abs_err={max_err:.3e}) {'ok' if bad else 'FAIL (not caught)'}")
         if not bad:
@@ -270,7 +305,7 @@ class Smoke:
         log = _build.library_path().with_suffix(".log")
         if log.exists():
             for line in log.read_text().splitlines():
-                if "Compiling entry" in line or "Used" in line or "spill" in line:
+                if any(w in line for w in ("Compiling entry", "Used", "spill", "wgmma")):
                     print(f"  ptxas: {line.split('ptxas info    :')[-1].strip()}")
 
     def kernel_checks(self):
@@ -569,20 +604,25 @@ class Smoke:
         launches = self.launched("flash_attention")
 
         rows = []
+        tol = (FLASH_FULL_ATOL, FLASH_FULL_RTOL, FLASH_FULL_ROW_RTOL)
         for (q, kk, v), out, (model, window) in zip(inputs, outs, FLASH_CASES):
             hq, dh = q.shape[2], q.shape[3]
             wide = [x.float() for x in (q, kk, v)]
             want = attention_flash(*wide, window=window, block=FLASH_CHECK_BLOCK)
             err = self.check(f"flash {model} window={window} (full width) vs fp32 "
-                             "attention_flash", out, want, FULL_ATOL, FULL_RTOL)
-            # a fault of one KV tile: the diagonal moved a tile left, or the
-            # window a tile short
+                             "attention_flash", out, want, *tol)
+            # faults of one KV tile: the diagonal moved a tile left, or the
+            # window a tile short; and V of the wrong tile at S/2
             fault = ({"q_offset": -FAULT_TILE} if window is None
                      else {"window": window - FAULT_TILE})
             self.expect_caught(f"the limit catches {model} with {fault}",
                                attention_flash(*wide, block=FLASH_CHECK_BLOCK,
                                                **{"window": window, **fault}),
-                               want, FULL_ATOL, FULL_RTOL)
+                               want, *tol)
+            self.expect_caught(f"the limit catches {model} with the wrong V tile at S/2",
+                               attention_flash(wide[0], wide[1], wrong_v_tile(wide[2]),
+                                               window=window, block=FLASH_CHECK_BLOCK),
+                               want, *tol)
             del wide, want
             self.free()
             i = torch.arange(FLASH_S, dtype=torch.float64)
@@ -596,7 +636,7 @@ class Smoke:
                 "flash_attention", launches=launches, max_err=err, ms=ms,
                 plain_ms=plain, library_ms=library, nbytes=nbytes,
                 ops=4 * hq * dh * pairs, peak_flops=PEAK_BF16_FLOPS,
-                shape=(1, FLASH_S, hq, kk.shape[2], dh), tol=[FULL_ATOL, FULL_RTOL],
+                shape=(1, FLASH_S, hq, kk.shape[2], dh), tol=list(tol),
                 append=False, model=model, window=window, pairs_in_band=pairs,
                 library_note=note))
             self.free()
@@ -606,11 +646,12 @@ class Smoke:
 
     def sdpa_ms(self, q, k, v, window, causal_mask) -> tuple[float, str]:
         """Time of one scaled_dot_product_attention call (GQA) on the same
-        inputs in its (B, H, S, D) layout, fused backends only: the math
-        backend would build an S x S score tensor.  The transposed copies
-        and, for a window, the additive band mask (0 in the band, -inf
-        outside, in the inputs' dtype: 2 GB at S = 32k in bf16) are made
-        outside the timing."""
+        inputs in its (B, H, S, D) layout: each fused backend that takes
+        the case is timed on its own, and the fastest is returned with its
+        name (the math backend would build an S x S score tensor).  The
+        transposed copies and, for a window, the additive band mask (0 in
+        the band, -inf outside, in the inputs' dtype: 2 GB at S = 32k in
+        bf16) are made outside the timing."""
         torch = self.torch
         from torch.nn.attention import SDPBackend, sdpa_kernel
 
@@ -624,11 +665,24 @@ class Smoke:
                   .masked_fill_(~band, float("-inf"))}
             note = f"attn_mask=additive {q.dtype} band of {FLASH_S} x {FLASH_S}"
             del band
-        with sdpa_kernel([SDPBackend.FLASH_ATTENTION, SDPBackend.CUDNN_ATTENTION,
-                          SDPBackend.EFFICIENT_ATTENTION]):
-            ms = self.time_ms(lambda: F.scaled_dot_product_attention(
-                qt, kt, vt, enable_gqa=True, **kw))
-        return ms, f"scaled_dot_product_attention({note}, enable_gqa=True), fused backends"
+        times = {}
+        for backend in (SDPBackend.FLASH_ATTENTION, SDPBackend.CUDNN_ATTENTION,
+                        SDPBackend.EFFICIENT_ATTENTION):
+            try:
+                with sdpa_kernel([backend]):
+                    times[backend.name] = self.time_ms(lambda: F.scaled_dot_product_attention(
+                        qt, kt, vt, enable_gqa=True, **kw))
+            except RuntimeError as e:  # the backend does not take this case
+                print(f"sdpa {backend.name} ({note}): refused: {str(e).splitlines()[0][:120]}")
+                continue
+            print(f"sdpa {backend.name} ({note}): {times[backend.name]:.3f} ms")
+        if not times:
+            self.failures.append(f"no fused SDPA backend takes {note}")
+            return None, f"null: no fused scaled_dot_product_attention backend takes {note}"
+        best = min(times, key=times.get)
+        return times[best], (f"scaled_dot_product_attention({note}, enable_gqa=True), "
+                             f"{best} backend, the fastest of "
+                             + ", ".join(f"{n} {t:.3f} ms" for n, t in times.items()))
 
     def kernel_timing_rows(self, kernel_rows):
         print("== kernel timing rows (repro_torch.bench.lm_bench.kernel_rows)")

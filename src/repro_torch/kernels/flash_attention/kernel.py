@@ -1,8 +1,8 @@
 """Binding of the CUDA flash attention kernel (``csrc/flash_attention.cu``),
 which replaces the Pallas TPU kernel ``_fa_kernel`` of
-``repro.kernels.flash_attention.kernel``.  Bounded by operations; IEEE
-fp32 FMAs on the CUDA cores in this first version; see the source for the
-design."""
+``repro.kernels.flash_attention.kernel``.  Bounded by operations: bf16
+runs Q K^T and P V on the tensor cores (wgmma, TMA loads), fp32 runs IEEE
+FMAs on the CUDA cores; see the source for the design."""
 from __future__ import annotations
 
 import math

@@ -20,7 +20,9 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int | None = None,
 
     CPU tensors, or ``use_kernel=False``, take the plain PyTorch version.
     CUDA tensors go to the kernel, which takes contiguous fp32 or bf16 of
-    one dtype with Dh in {16, 32, 64, 128}, or raise.
+    one dtype with Dh in {16, 32, 64, 128} at 16-byte aligned addresses,
+    or raise.  bf16 rounds the probabilities to bf16 for the PV product,
+    as the plain version does; fp32 keeps them in fp32.
     ``flash_attention.launches`` counts the kernel's launches.
     """
     if (q.ndim != 4 or k.ndim != 4 or k.shape != v.shape
@@ -44,6 +46,9 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int | None = None,
                          f"got {q.shape[3]}")
     if q.shape[0] * q.shape[2] > 65535:
         raise ValueError("flash_attention: the kernel takes B * Hq <= 65535")
+    if any(t.data_ptr() % 16 for t in (q, k, v)):
+        raise ValueError("flash_attention: the kernel takes q, k, v at 16-byte "
+                         "aligned addresses")
     out = torch.empty_like(q)
     if out.numel():
         flash_attention_cuda(q, k, v, out, causal=causal, window=window)

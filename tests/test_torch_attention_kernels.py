@@ -6,6 +6,9 @@ wrappers run their Pallas kernels in interpret mode, as tests/test_kernels.py
 runs them, and the JAX refs run beside them.  Tolerances are those of
 tests/test_kernels.py: fp32 2e-3, bf16 3e-2.  The CUDA kernels are held
 against the same plain versions on the card by chip_smoke.py."""
+import importlib.util
+from pathlib import Path
+
 import numpy as np
 import pytest
 
@@ -27,8 +30,21 @@ from repro_torch.examples.oversubscribe_demo import TOY, main, paged_decode  # n
 from repro_torch.interop import to_torch  # noqa: E402
 from repro_torch.kernels.flash_attention.ref import flash_attention_ref  # noqa: E402
 from repro_torch.kernels.paged_attention.ref import paged_attention_ref  # noqa: E402
+from repro_torch.models.attention import attention_flash  # noqa: E402
 
 ATOL = {"float32": 2e-3, "bfloat16": 3e-2}
+
+
+def _load_chip_smoke():
+    """chip_smoke.py, whose full-width limits the tests below hold to."""
+    path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+smoke = _load_chip_smoke()
 
 
 def _f32(a) -> np.ndarray:
@@ -100,6 +116,70 @@ def test_flash_attention_ragged_lengths(sq, skv, window, causal):
     np.testing.assert_allclose(
         _f32(mine), _f32(attention_flash(qt, kt, vt, causal=causal, window=window,
                                          q_offset=skv - sq, block=64)), atol=2e-3)
+
+
+# The full-width flash limit of chip_smoke.py: the bf16 kernel rounds P to
+# bf16 per KV tile, as the port's attention_flash does in bf16 (and the JAX
+# reference); the limit is atol + rtol |want| + row_rtol rms_row(want)
+# against attention_flash on the fp32 widening.  It has to pass the
+# rounding and reject a one-tile fault.
+
+FULL_S, FULL_H, FULL_DH, FULL_WINDOW = 2048, 2, 128, 512
+
+
+def _full_width_case():
+    rng = np.random.default_rng(13)
+    q, k, v = (torch.from_numpy(rng.standard_normal((1, FULL_S, FULL_H, FULL_DH))
+                                .astype(np.float32)).to(torch.bfloat16) for _ in range(3))
+    return q, k, v, [x.float() for x in (q, k, v)]
+
+
+def _out_of_limit(got, want) -> tuple[int, float]:
+    """(elements out of the limit, largest |got - want| / limit)."""
+    limit = smoke.row_scaled_limit(want, smoke.FLASH_FULL_ATOL, smoke.FLASH_FULL_RTOL,
+                                   smoke.FLASH_FULL_ROW_RTOL)
+    err = (got.float() - want.float()).abs()
+    return int((err > limit).sum()), float((err / limit).max())
+
+
+@pytest.mark.parametrize("window", [None, FULL_WINDOW])
+def test_flash_full_width_limit_passes_bf16_p(window):
+    q, k, v, wide = _full_width_case()
+    want = attention_flash(*wide, window=window, block=smoke.FLASH_CHECK_BLOCK)
+    got = attention_flash(q, k, v, window=window, block=64)
+    assert got.dtype == torch.bfloat16
+    bad, worst = _out_of_limit(got, want)
+    assert bad == 0 and worst < 1.0, (bad, worst)
+    # the old elementwise limit, written for P in fp32, does not hold
+    assert smoke.Smoke.compare(got, want, smoke.FULL_ATOL, smoke.FULL_RTOL)[1] > 0
+
+
+@pytest.mark.parametrize("window,fault", [
+    (None, "diagonal a tile left"), (FULL_WINDOW, "window a tile short"),
+    (None, "wrong V tile"), (FULL_WINDOW, "wrong V tile")])
+def test_flash_full_width_limit_rejects_one_tile_faults(window, fault):
+    _, _, _, wide = _full_width_case()
+    kw = dict(window=window, block=smoke.FLASH_CHECK_BLOCK)
+    want = attention_flash(*wide, **kw)
+    if fault == "diagonal a tile left":
+        bad_out = attention_flash(*wide, q_offset=-smoke.FAULT_TILE, **kw)
+    elif fault == "window a tile short":
+        bad_out = attention_flash(*wide, **{**kw, "window": window - smoke.FAULT_TILE})
+    else:
+        bad_out = attention_flash(wide[0], wide[1], smoke.wrong_v_tile(wide[2]), **kw)
+    bad, _ = _out_of_limit(bad_out, want)
+    assert bad > 0
+    assert smoke.Smoke.compare(bad_out, want, smoke.FLASH_FULL_ATOL, smoke.FLASH_FULL_RTOL,
+                               smoke.FLASH_FULL_ROW_RTOL)[1] == bad
+
+
+def test_wrong_v_tile_moves_one_tile():
+    v = torch.arange(256, dtype=torch.float32).reshape(1, 256, 1, 1)
+    bad = smoke.wrong_v_tile(v, tile=64)
+    assert bad[0, :128, 0, 0].tolist() == list(range(128))
+    assert bad[0, 128:192, 0, 0].tolist() == list(range(64, 128))
+    assert bad[0, 192:, 0, 0].tolist() == list(range(192, 256))
+    assert v[0, 128, 0, 0] == 128
 
 
 def test_flash_attention_ref_is_the_offset_dense_path():
