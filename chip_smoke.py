@@ -13,10 +13,14 @@
    options, a 33,842^2 fp32 SGEMM and a 1192 x 1200 x 1200 FDTD3d grid for 3
    steps, one app at a time.  Each kernel's launch counter is set to 0 just
    before its app runs and read just after; its output is held against the
-   plain version at the JAX tests' tolerance; then the kernel, the plain
-   version and, where one PyTorch call computes the same function, that call
-   are timed with CUDA events (one warm-up, median of 3) beside the kernel's
-   bound from the H100's published peaks.
+   plain version at the JAX tests' tolerance; the SGEMM, whose fp32 kernel
+   runs 3xTF32 on the tensor cores, is also held against fp64 on 256 rows at
+   4 times the error of ``torch.matmul`` in fp32, a limit that a one-pass
+   TF32 product is shown to fail.  Then the kernel, the plain version and,
+   where one PyTorch call computes the same function, that call
+   (``torch.matmul``; for FDTD3d a replicate-padded ``nn.Conv3d`` with the
+   25-tap star as its weight) are timed with CUDA events (one warm-up,
+   median of 3) beside the kernel's bound from the H100's published peaks.
 4. Holds the flash and paged attention kernels against their plain
    versions at the shapes of the repository's kernel tests, then drives the
    attention paths at full width, each kernel's launch counter set to 0
@@ -71,9 +75,17 @@ DEVICE = "cuda"
 # Published H100 SXM peaks (NVIDIA data sheet) at its 700 W limit.
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FP32_FLOPS = 67e12     # outside the tensor cores
+PEAK_TF32_FLOPS = 495e12    # dense tensor cores
 PEAK_BF16_FLOPS = 989e12    # dense tensor cores
 BS_OPS_PER_OPTION = 60      # the BS app's model (FLOPS_PER_ELEM)
 FDTD_OPS_PER_CELL = 29      # c0*x, then 4 x (5 adds, 1 mul, 1 add)
+# The SGEMM against fp64 on a sample of rows: those of the last 128-row
+# tile (partial at n = 33,842) and seeded others, GEMM_FP64_ROWS in all, all
+# N columns, computed GEMM_FP64_COLS columns at a time.  The kernel's largest
+# error may be at most GEMM_FP64_FACTOR times that of torch.matmul in fp32
+# on the same rows.  3xTF32 keeps fp32's accuracy; a one-pass TF32 product,
+# with 10 bits of mantissa, errs ~50x more at k = 33,842 and must fail.
+GEMM_FP64_ROWS, GEMM_FP64_COLS, GEMM_FP64_FACTOR = 256, 8192, 4.0
 
 SOURCES = {
     "black_scholes": ("src/repro_torch/kernels/csrc/black_scholes.cu",
@@ -329,16 +341,24 @@ class Smoke:
                           lambda: k.black_scholes(s.double(), x.double(), t.double()),
                           TypeError)
 
-        for m, kk, n in ((8, 16, 8), (300, 700, 250), (256, 512, 128)):
+        # the last two take the fp32 kernel's K in 2 and 3 panels, the last
+        # one short
+        for m, kk, n in ((8, 16, 8), (300, 700, 250), (256, 512, 128), (200, 8300, 150),
+                         (136, 17000, 260)):
             for dtype, atol in ((torch.float32, 1e-3), (torch.bfloat16, 0.15)):
                 a, b = self.rand((m, kk), dtype=dtype), self.rand((kk, n), dtype=dtype)
                 self.check(f"matmul {m}x{kk}x{n} {dtype}", k.matmul(a, b),
                            k.matmul(a, b, use_kernel=False), atol * math.sqrt(kk), 1e-2)
         self.expect_raise("matmul rejects a transposed view",
                           lambda: k.matmul(a.t(), a), ValueError)
+        self.split_check()
 
         coef = torch.tensor([0.5, 0.1, 0.05, 0.02, 0.01], device=DEVICE)
-        for shape in ((8, 16, 128), (16, 24, 136), (24, 8, 256), (5, 3, 40)):
+        # the last three cut the kernel's 16 x 64 tile and its ring of z
+        # planes: X not a multiple of 4, Y and X below the halo, X one past
+        # a tile
+        for shape in ((8, 16, 128), (16, 24, 136), (24, 8, 256), (5, 3, 40),
+                      (7, 19, 1001), (9, 5, 3), (3, 70, 65)):
             g = self.rand(shape)
             self.check(f"fdtd3d_step {shape}", k.fdtd3d_step(g, coef),
                        k.fdtd3d_step(g, coef, use_kernel=False), 1e-4)
@@ -353,6 +373,93 @@ class Smoke:
         self.check("fdtd3d constant field", out, torch.full_like(out, 2.5 * factor),
                    0.0, 1e-5)
         torch.cuda.synchronize()
+
+    def split_check(self):
+        """The SGEMM's split pre-pass bit for bit against its plain version,
+        at the 300 x 700 x 250 test shape: A as it is and B transposed, each
+        zero-padded to the kernel's tile multiples."""
+        torch = self.torch
+        from repro_torch.kernels.streamed_matmul.kernel import split_tf32_cuda
+        from repro_torch.kernels.streamed_matmul.ref import split_tf32_ref
+
+        a, b = self.rand((300, 700)), self.rand((700, 250))
+        for name, x, src, transpose in (("A", a, a, False), ("B^T", b, b.t(), True)):
+            rows, cols = -(-src.shape[0] // 128) * 128, -(-src.shape[1] // 32) * 32
+            hi, lo = split_tf32_cuda(x, transpose=transpose, rows=rows, cols=cols)
+            for got, want in zip((hi, lo), split_tf32_ref(src)):
+                full = torch.zeros((rows, cols), device=DEVICE)
+                full[:src.shape[0], :src.shape[1]] = want
+                got_bits, want_bits = got.view(torch.int32), full.view(torch.int32)
+                self.expect(f"matmul split of {name} {tuple(src.shape)} -> ({rows}, {cols}) "
+                            f"equals split_tf32_ref bit for bit "
+                            f"({int((got_bits != want_bits).sum())} differ)",
+                            bool(torch.equal(got_bits, want_bits)))
+
+    def gemm_fp64_check(self, a, b, c, c_lib) -> dict:
+        """The kernel's c against fp64 on GEMM_FP64_ROWS rows, at
+        GEMM_FP64_FACTOR times the largest error of torch.matmul in fp32
+        (``c_lib``) on the same rows; then a one-pass TF32 product of those
+        rows (TF32 allowed for that call alone; the port never makes it)
+        must fail the same limit."""
+        torch = self.torch
+        n = a.shape[0]
+        last = (n - 1) // 128 * 128  # the last 128-row tile
+        g = torch.Generator(device=DEVICE).manual_seed(3)
+        others = torch.randperm(last, generator=g, device=DEVICE)[:GEMM_FP64_ROWS - (n - last)]
+        rows = torch.cat([others.sort().values, torch.arange(last, n, device=DEVICE)])
+        a64 = a[rows].double()
+        want = torch.empty((rows.numel(), b.shape[1]), dtype=torch.float64, device=DEVICE)
+        for j in range(0, b.shape[1], GEMM_FP64_COLS):
+            want[:, j:j + GEMM_FP64_COLS] = a64 @ b[:, j:j + GEMM_FP64_COLS].double()
+        del a64
+
+        def err(x):
+            return (x.double() - want).abs_().max().item()
+
+        e_kernel, e_lib = err(c[rows]), err(c_lib[rows])
+        limit = GEMM_FP64_FACTOR * e_lib
+        self.expect(f"cublas c vs fp64 on {rows.numel()} rows (rows {last}..{n - 1} "
+                    f"included): kernel {e_kernel:.3e} <= {GEMM_FP64_FACTOR:g} x "
+                    f"torch.matmul fp32 {e_lib:.3e}", e_kernel <= limit)
+        torch.backends.cuda.matmul.allow_tf32 = True
+        try:
+            one_pass = torch.matmul(a[rows], b)
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = False
+        e_tf32 = err(one_pass)
+        self.expect(f"the fp64 limit catches a one-pass TF32 product ({e_tf32:.3e} > "
+                    f"{limit:.3e})", e_tf32 > limit)
+        return {"fp64_rows": rows.numel(), "fp64_max_err": e_kernel,
+                "fp64_max_err_torch_matmul": e_lib, "fp64_max_err_tf32_one_pass": e_tf32,
+                "fp64_limit": limit}
+
+    def conv3d_ms(self, grid, coeffs, want) -> tuple[float | None, str]:
+        """Time of one nn.Conv3d that computes the stencil step (the 25-tap
+        star as a 9^3 weight, replicate padding, fp32 with TF32 off), which
+        the port never calls; its output is held against ``want``, the
+        kernel's step, at 1e-3.  None with cuDNN's error if it refuses."""
+        torch = self.torch
+        r = len(coeffs) - 1
+        conv = torch.nn.Conv3d(1, 1, 2 * r + 1, padding=r, padding_mode="replicate",
+                               bias=False).to(DEVICE)
+        with torch.inference_mode():
+            w = torch.zeros_like(conv.weight)
+            w[0, 0, r, r, r] = coeffs[0]
+            for i in range(1, r + 1):
+                for d in (-i, i):
+                    w[0, 0, r + d, r, r] = w[0, 0, r, r + d, r] = w[0, 0, r, r, r + d] = coeffs[i]
+            conv.weight.copy_(w)
+            x = grid[None, None]
+            note = ("nn.Conv3d(1, 1, 9, padding=4, padding_mode='replicate', bias=False), "
+                    "25-tap star weight, fp32, TF32 off")
+            try:
+                self.check("fdtd3d step: nn.Conv3d vs kernel", conv(x)[0, 0], want, 1e-3)
+                self.free()
+                return self.time_ms(lambda: conv(x), reps=1), note
+            except RuntimeError as e:  # cuDNN does not take the full grid
+                msg = str(e).splitlines()[0][:200]
+                print(f"fdtd3d nn.Conv3d refused: {msg}")
+                return None, f"null: {note} refused: {msg}"
 
     def gemm_size(self) -> int:
         """The paper's GEMM size, or the reduced one if the kernel would take
@@ -396,15 +503,31 @@ class Smoke:
         launches = self.launched("matmul")
         atol = 1e-3 * math.sqrt(n)
         err = self.check("cublas c (paper size)", out["c"], out["c_ref"], atol, 1e-2)
+        # c_ref is the plain version: torch.matmul in fp32, TF32 off
+        fp64 = self.gemm_fp64_check(out["a"], out["b"], out["c"], out["c_ref"])
         a, b = out["a"], out["b"]
         del out
         self.free()
+        # the phase's peak so far (the checks' temporaries); then the
+        # kernel's own: a, b, one c and the split scratch
+        checks_peak = torch.cuda.max_memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
         ms = self.time_ms(lambda: k.matmul(a, b))
+        call_peak = torch.cuda.max_memory_allocated()
         plain = self.time_ms(lambda: k.matmul(a, b, use_kernel=False))
         library = self.time_ms(lambda: torch.matmul(a, b))
+        # The bound: the function's 2n^3 operations at the fastest peak that
+        # takes fp32 operands (TF32).  Beside it, the ceilings of two
+        # algorithms: the kernel's 3xTF32 (three TF32 products) and the
+        # earlier kernel's fp32 FMAs on the CUDA cores.
         self.record("matmul", launches=launches, max_err=err, ms=ms,
                     plain_ms=plain, library_ms=library, nbytes=3 * 4 * n * n,
-                    ops=2 * n**3, shape=(n, n, n), tol=[atol, 1e-2])
+                    ops=2 * n**3, peak_flops=PEAK_TF32_FLOPS, shape=(n, n, n),
+                    tol=[atol, 1e-2],
+                    tf32x3_ceiling_ms=3 * 2 * n**3 / PEAK_TF32_FLOPS * 1e3,
+                    fp32_cuda_core_ceiling_ms=2 * n**3 / PEAK_FP32_FLOPS * 1e3,
+                    max_memory_allocated_kernel_call=call_peak,
+                    max_memory_allocated_checks=checks_peak, **fp64)
         del a, b
 
         self.start_app(f"fdtd3d {FDTD_SHAPE} x {FDTD_STEPS} steps")
@@ -419,9 +542,11 @@ class Smoke:
         cells = math.prod(FDTD_SHAPE)
         ms = self.time_ms(lambda: k.fdtd3d_step(grid, coeffs))
         plain = self.time_ms(lambda: k.fdtd3d_step(grid, coeffs, use_kernel=False))
+        library, note = self.conv3d_ms(grid, coeffs, k.fdtd3d_step(grid, coeffs))
         self.record("fdtd3d", launches=launches, max_err=err, ms=ms,
-                    plain_ms=plain, library_ms=None, nbytes=8 * cells + 4 * 5,
-                    ops=FDTD_OPS_PER_CELL * cells, shape=FDTD_SHAPE, tol=1e-3)
+                    plain_ms=plain, library_ms=library, nbytes=8 * cells + 4 * 5,
+                    ops=FDTD_OPS_PER_CELL * cells, shape=FDTD_SHAPE, tol=1e-3,
+                    library_note=note)
         del grid, coeffs
         self.free()
 

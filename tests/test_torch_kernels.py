@@ -117,11 +117,8 @@ def test_fdtd3d_constant_field_invariant():
     np.testing.assert_allclose(out.numpy(), 2.5 * factor, rtol=1e-5)
 
 
-def test_fdtd3d_any_z_and_tiny_dims():
-    """The port drops the Pallas kernel's Z % 8 constraint: the plain
-    version clamps to the edge on every axis, however short."""
-    g = np.random.default_rng(5).standard_normal((5, 3, 40)).astype(np.float32)
-    out = tk.fdtd3d_step(*to_torch((g, COEF), "cpu")).numpy()
+def _stencil_clamped(g: np.ndarray) -> np.ndarray:
+    """The stencil step in numpy, every neighbour index clamped to the grid."""
     idx = [np.clip(np.arange(-4, d + 4), 0, d - 1) for d in g.shape]
     p = g[np.ix_(*idx)]
     want = COEF[0] * g
@@ -131,4 +128,23 @@ def test_fdtd3d_any_z_and_tiny_dims():
             p[4 - r:4 - r + Z, 4:4 + Y, 4:4 + X] + p[4 + r:4 + r + Z, 4:4 + Y, 4:4 + X]
             + p[4:4 + Z, 4 - r:4 - r + Y, 4:4 + X] + p[4:4 + Z, 4 + r:4 + r + Y, 4:4 + X]
             + p[4:4 + Z, 4:4 + Y, 4 - r:4 - r + X] + p[4:4 + Z, 4:4 + Y, 4 + r:4 + r + X])
-    np.testing.assert_allclose(out, want, atol=1e-5)
+    return want
+
+
+def test_fdtd3d_any_z_and_tiny_dims():
+    """The port drops the Pallas kernel's Z % 8 constraint: the plain
+    version clamps to the edge on every axis, however short."""
+    g = np.random.default_rng(5).standard_normal((5, 3, 40)).astype(np.float32)
+    out = tk.fdtd3d_step(*to_torch((g, COEF), "cpu")).numpy()
+    np.testing.assert_allclose(out, _stencil_clamped(g), atol=1e-5)
+
+
+@pytest.mark.parametrize("shape", [(7, 19, 1001), (9, 5, 3), (3, 70, 65)])
+def test_fdtd3d_shapes_that_cut_the_kernel_tile(shape):
+    """The shapes chip_smoke.py holds the CUDA kernel to its plain version
+    at, which cut its 16 x 64 tile and its ring of z planes (X not a
+    multiple of 4, Y and X below the halo, X one past a tile): the plain
+    version against the stencil with clamped indices."""
+    g = np.random.default_rng(sum(shape)).standard_normal(shape).astype(np.float32)
+    out = tk.fdtd3d_step(*to_torch((g, COEF), "cpu")).numpy()
+    np.testing.assert_allclose(out, _stencil_clamped(g), atol=1e-5)

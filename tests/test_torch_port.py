@@ -152,6 +152,18 @@ def test_library_name_follows_the_sources():
         "paged_attention.cu", "streamed_matmul.cu"]
 
 
+def test_library_name_follows_the_headers(monkeypatch, tmp_path):
+    """An edit to a shared header, such as hopper_common.cuh, names a new
+    library, so that the kernels are built again."""
+    for src in _build.CSRC.glob("*.cu*"):
+        (tmp_path / src.name).write_bytes(src.read_bytes())
+    monkeypatch.setattr(_build, "CSRC", tmp_path)
+    before = _build.library_path()
+    header = tmp_path / "hopper_common.cuh"
+    header.write_text(header.read_text() + "\n// edited\n")
+    assert _build.library_path() != before
+
+
 @pytest.mark.parametrize("dtype", [np.float32, np.int32, jnp.bfloat16])
 def test_to_torch_round_trips(dtype):
     src = jnp.asarray(np.arange(-6, 6).reshape(3, 4) * 1.5, dtype)
