@@ -27,8 +27,10 @@
    just before its path and read just after: the paged-decode demo's
    ``paged_decode`` at qwen2-72b / decode_32k (B=128, 512 pages of 64 a
    sequence, a 17.2 GB bf16 pool), the paged kernel again over a randomly
-   permuted block table with random lengths, and bf16 flash prefill at
-   S=32,768 for qwen2-7b (causal) and mixtral-8x22b (window 4096).  The
+   permuted block table with random lengths and over lengths at the edges
+   of its stages and split-KV chunks (short rows among them), twice on the
+   same inputs for the same bits, and bf16 flash prefill at S=32,768 for
+   qwen2-7b (causal) and mixtral-8x22b (window 4096).  The
    paged output is held against the plain version in groups of 8
    sequences, the flash output against the port's blocked
    ``attention_flash`` (the dense reference would need a 120 GB score
@@ -51,6 +53,7 @@ from __future__ import annotations
 import gc
 import json
 import math
+import re
 import statistics
 import subprocess
 import sys
@@ -114,11 +117,29 @@ FAULT_TILE = 64             # a one-tile fault: no larger than the kernel's 128-
 # (tests/test_torch_attention_kernels.py)
 BF16_ATOL, BF16_RTOL = 3e-2, 2.0**-6
 # paged bf16 at full width, against the plain version run in fp32 on the
-# same values: the kernel computes in fp32, so its one error is the
-# rounding of the output to bf16 (at most 2^-8 of |out|).  Over the 4k-32k
-# positions a row attends, |out| of N(0, 1) data is about 0.01-0.03, so
-# atol stays two orders below it.
+# same values.  The kernel's products run on the tensor cores with fp32
+# accumulators: Q K^T of bf16 inputs is exact, and P enters P V as two bf16
+# parts, hi = bf16(P) and lo = bf16(P - hi), which keep P to ~2^-16, so the
+# kernel stays as accurate as fp32 and its one error that matters is the
+# rounding of the output to bf16 (at most 2^-8 of |out|).  A single bf16 P
+# would fail this limit on short rows, where |out| is large and few terms
+# average its rounding out (tests/test_torch_paged_precision.py).  Over the
+# 4k-32k positions a row attends, |out| of N(0, 1) data is about
+# 0.01-0.03, so atol stays two orders below it.
 FULL_ATOL, FULL_RTOL = 1e-4, 2.0**-7
+# lengths of the short-row and chunk-edge case at full width: rows where a
+# single bf16 P fails FULL_ATOL/FULL_RTOL, and the edges of the bf16
+# kernel's 64-position stages and 2,048-position split-KV chunks
+PAGED_EDGE_LENS = (1, 63, 64, 65, 640, 2047, 2048, 2049, 4095, 32768)
+# short rows at the test shapes, (psz, pages, Hq, Hkv, Dh) with the rows'
+# lengths: every template instance of the bf16 kernel (Dh 16-128, one or
+# two n8 tiles of heads) and page sizes that are not a multiple of 8, at
+# lengths where a single bf16 P fails FULL_ATOL/FULL_RTOL
+# (tests/test_torch_paged_precision.py)
+PAGED_SHORT_CASES = ((32, 20, 32, 2, 128), (16, 40, 32, 2, 64), (12, 54, 16, 1, 32),
+                     (8, 80, 32, 2, 16), (5, 128, 64, 8, 128), (24, 27, 8, 1, 64),
+                     (64, 10, 4, 1, 32), (7, 92, 8, 2, 16))
+PAGED_SHORT_LENS = (640, 64, 3)
 # flash bf16 at full width, against the plain version run in fp32 on the
 # same values, elementwise atol + rtol |want| + row_rtol rms_row(want), rms
 # over Dh for each (position, head).  The kernel rounds P to bf16 for the
@@ -316,9 +337,25 @@ class Smoke:
               f"{_build.library_path().relative_to(ROOT)}")
         log = _build.library_path().with_suffix(".log")
         if log.exists():
-            for line in log.read_text().splitlines():
+            lines = log.read_text().splitlines()
+            for line in lines:
                 if any(w in line for w in ("Compiling entry", "Used", "spill", "wgmma")):
                     print(f"  ptxas: {line.split('ptxas info    :')[-1].strip()}")
+            self.paged_ptxas(lines)
+
+    @staticmethod
+    def paged_ptxas(lines):
+        """The bf16 paged kernel's registers and spills, per instance."""
+        name, spill = None, ""
+        for line in lines:
+            if "Compiling entry" in line:
+                entry = re.search(r"paged_tc_kernelILi(\d+)ELi(\d+)E", line)
+                name = entry and f"Dh={entry[1]} n8 tiles={entry[2]}"
+            elif name and "spill" in line:
+                spill = line.strip()
+            elif name and "Used" in line:
+                print(f"paged bf16 kernel {name}: {line.split(':', 1)[-1].strip()}; {spill}")
+                name = None
 
     def kernel_checks(self):
         """Each kernel against its plain version at the kernel tests' shapes."""
@@ -585,21 +622,41 @@ class Smoke:
                           lambda: k.flash_attention(*(self.rand((1, 8, 2, 48)),) * 3),
                           ValueError)
 
-        for psz, pages in ((16, 4), (32, 8)):
-            for hq, hkv, dh in ((8, 2, 32), (64, 8, 128)):
-                for dtype, atol, rtol in tols:
-                    B = 3
-                    npages = pages * B + 2
-                    kp, vp = (self.rand((npages, psz, hkv, dh), dtype=dtype) for _ in range(2))
-                    q = self.rand((B, hq, dh), dtype=dtype)
-                    bt = torch.randperm(npages, device=DEVICE)[:B * pages].reshape(
-                        B, pages).to(torch.int32)
-                    sl = torch.tensor([psz * pages, psz * pages - 5, 3],
-                                      dtype=torch.int32, device=DEVICE)
-                    self.check(f"paged psz={psz} pages={pages} hq={hq} hkv={hkv} "
-                               f"Dh={dh} {dtype}", k.paged_attention(q, kp, vp, bt, sl),
-                               k.paged_attention(q, kp, vp, bt, sl, use_kernel=False),
-                               atol, rtol)
+        # the kernel tests' shapes; then the bf16 kernel's other template
+        # instances (Dh 16 and 64; G 1, 3 and up to 16, two n8 tiles of
+        # heads), page sizes that are not a multiple of 8 (5, 12), of 24 and
+        # of two stages a page (128), and a row over two chunks (3,200
+        # positions); then PAGED_SHORT_CASES, short rows in every instance.
+        # bf16 is also held against the plain version run in fp32 on the
+        # same values at FULL_ATOL/FULL_RTOL, which a single bf16 P fails.
+        cases = [(psz, pages, hq, hkv, dh, None) for psz, pages in ((16, 4), (32, 8))
+                 for hq, hkv, dh in ((8, 2, 32), (64, 8, 128))]
+        cases += [(psz, pages, hq, hkv, dh, None) for psz, pages, hq, hkv, dh in (
+            (16, 4, 4, 2, 16), (32, 3, 16, 2, 64), (32, 4, 4, 4, 64), (16, 4, 6, 2, 32),
+            (16, 4, 32, 2, 16), (32, 2, 32, 2, 32), (64, 2, 32, 2, 64), (32, 8, 32, 2, 128),
+            (12, 6, 8, 2, 32), (5, 9, 64, 8, 128), (24, 5, 16, 4, 64), (128, 3, 64, 8, 128),
+            (16, 200, 8, 2, 32))]
+        cases += [(*case, PAGED_SHORT_LENS) for case in PAGED_SHORT_CASES]
+        for psz, pages, hq, hkv, dh, lens in cases:
+            for dtype, atol, rtol in tols:
+                B = 3
+                npages = pages * B + 2
+                kp, vp = (self.rand((npages, psz, hkv, dh), dtype=dtype) for _ in range(2))
+                q = self.rand((B, hq, dh), dtype=dtype)
+                bt = torch.randperm(npages, device=DEVICE)[:B * pages].reshape(
+                    B, pages).to(torch.int32)
+                sl = torch.tensor(lens or (psz * pages, psz * pages - 5, 3),
+                                  dtype=torch.int32, device=DEVICE)
+                label = f"paged psz={psz} pages={pages} hq={hq} hkv={hkv} Dh={dh}"
+                got = k.paged_attention(q, kp, vp, bt, sl)
+                self.check(f"{label} {dtype}", got,
+                           k.paged_attention(q, kp, vp, bt, sl, use_kernel=False),
+                           atol, rtol)
+                if dtype == torch.bfloat16:
+                    self.check(f"{label} lengths {sl.tolist()} bf16 vs fp32 plain", got,
+                               k.paged_attention(q.float(), kp.float(), vp.float(), bt, sl,
+                                                 use_kernel=False),
+                               FULL_ATOL, FULL_RTOL)
         B, hq, hkv, dh, psz, pages = 2, 4, 2, 16, 8, 4
         npages = B * pages
         kp, vp = (self.rand((npages, psz, hkv, dh)) for _ in range(2))
@@ -646,6 +703,7 @@ class Smoke:
     def paged_path(self, paged_decode):
         """The paged-decode demo at qwen2-72b / decode_32k width."""
         torch, k = self.torch, self.kernels
+        from repro_torch.kernels.paged_attention.kernel import paged_attention_cuda
         self.start_app(f"paged_decode {PAGED_MODEL} B={PAGED_B} pages={PAGED_PAGES} "
                        f"psz={PAGED_PSZ} bf16")
         res = paged_decode(PAGED_MODEL, batch=PAGED_B, pages=PAGED_PAGES,
@@ -688,6 +746,29 @@ class Smoke:
         del out
         self.free()
 
+        # short rows and the edges of stages and chunks, cycled over the batch
+        sl_edge = torch.tensor([PAGED_EDGE_LENS[i % len(PAGED_EDGE_LENS)]
+                                for i in range(PAGED_B)], dtype=torch.int32, device=DEVICE)
+        out = k.paged_attention(q, kp, vp, bt, sl_edge)
+        err = max(err, self.check(
+            f"paged lengths cycling over {PAGED_EDGE_LENS} vs fp32 plain", out,
+            self.paged_plain(q, kp, vp, bt, sl_edge, widen=True), FULL_ATOL, FULL_RTOL))
+        del out
+        self.free()
+
+        # the same inputs give the same bits: the partials merge in chunk
+        # order; the launches and the scratch of one call
+        k.paged_attention.launches = 0
+        paged_attention_cuda.scratch_bytes = 0
+        first = k.paged_attention(q, kp, vp, bt, sl)
+        per_call = k.paged_attention.launches
+        scratch_bytes = paged_attention_cuda.scratch_bytes
+        self.expect("paged: two calls on the same inputs give the same bits",
+                    bool(torch.equal(first.view(torch.int16),
+                                     k.paged_attention(q, kp, vp, bt, sl).view(torch.int16))))
+        del first
+        self.free()
+
         # time the demo's call; the bound counts the live rows only
         hq, hkv, dh = q.shape[1], kp.shape[2], kp.shape[3]
         live = int(sl.clamp(0, span).sum().item())
@@ -697,15 +778,27 @@ class Smoke:
                   + 4 * pages_read + 4 * PAGED_B)
         ms = self.time_ms(lambda: k.paged_attention(q, kp, vp, bt, sl))
         plain = self.time_ms(lambda: self.paged_plain(q, kp, vp, bt, sl), reps=1)
+        # the rate a device-to-device copy reaches on this card, as a
+        # yardstick of what a bytes-bound kernel can read: a quarter of the
+        # K pool copied by torch's copy_, its bytes read and written once
+        src = kp[:kp.shape[0] // 4]
+        dst = torch.empty_like(src)
+        copy_rate = 2 * src.numel() * src.element_size() / (
+            self.time_ms(lambda: dst.copy_(src)) / 1e3)
+        del src, dst
+        print(f"paged: {nbytes / (ms / 1e3):.4e} bytes/s read by the kernel, "
+              f"{copy_rate:.4e} bytes/s moved by a device copy")
         self.record("paged_attention", launches=launches, max_err=err, ms=ms,
                     plain_ms=plain, library_ms=None, nbytes=nbytes,
                     ops=4 * hq * dh * live, peak_flops=PEAK_BF16_FLOPS,
                     shape=(PAGED_B, hq, hkv, dh, PAGED_PAGES, PAGED_PSZ),
                     tol=[FULL_ATOL, FULL_RTOL], pool_bytes=pool_bytes,
-                    live_positions=live,
+                    live_positions=live, launches_per_call=per_call,
+                    device_copy_bytes_per_s=copy_rate,
+                    scratch_bytes=scratch_bytes,
                     library_note="null: no single PyTorch call attends through a "
                                  "block table without a gathered copy of the pool")
-        del q, kp, vp, bt, sl, bt_perm, sl_rand
+        del q, kp, vp, bt, sl, bt_perm, sl_rand, sl_edge
         self.free()
 
     def flash_path(self, get_config, attention):

@@ -64,6 +64,8 @@
 #include "attention_common.cuh"
 #include "hopper_common.cuh"
 
+#include <cuda_bf16.h>
+
 #include <climits>
 #include <cmath>
 #include <cstdint>

@@ -22,7 +22,16 @@ def paged_attention(q, kv_pool_k, kv_pool_v, block_table, seq_lens, *,
     CUDA tensors go to the kernel, which takes contiguous fp32 or bf16 q and
     pools of one dtype, int32 block table and lengths, Dh in
     {16, 32, 64, 128} and at most 16 query heads per KV head, or raise.
-    ``paged_attention.launches`` counts the kernel's launches.
+    The dtype chooses the kernel.  bf16 runs the tensor-core kernel: the
+    products on ``mma.sync`` with P as bf16 hi + lo parts (fp32-accurate),
+    pages loaded by TMA (cp.async for a page size that is not a multiple
+    of 8) into a shared-memory ring, each sequence split into chunks of
+    about 2,048 positions whose fp32 partials (scratch that this call
+    allocates, ``kernel.paged_attention_cuda.scratch_bytes``) a second
+    kernel merges in chunk order: two launches, and the same bits for the
+    same inputs.  fp32 runs the CUDA-core kernel in one launch; no main
+    path runs it.
+    ``paged_attention.launches`` counts the kernels launched.
     """
     if (q.ndim != 3 or kv_pool_k.ndim != 4 or kv_pool_k.shape != kv_pool_v.shape
             or kv_pool_k.shape[3] != q.shape[2] or kv_pool_k.shape[2] == 0
@@ -51,8 +60,8 @@ def paged_attention(q, kv_pool_k, kv_pool_v, block_table, seq_lens, *,
                          f"query heads per KV head and B <= 65535")
     out = torch.empty_like(q)
     if out.numel():
-        paged_attention_cuda(q, kv_pool_k, kv_pool_v, block_table, seq_lens, out)
-        paged_attention.launches += 1
+        paged_attention.launches += paged_attention_cuda(
+            q, kv_pool_k, kv_pool_v, block_table, seq_lens, out)
     return out
 
 
