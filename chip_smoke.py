@@ -40,10 +40,27 @@
    as in 3; for flash the library time is the fastest fused backend of
    ``scaled_dot_product_attention`` that takes the case, which the port
    never calls.
-5. Runs CG, Graph500 and the FFT convolutions at their default sizes, and
+5. Serves qwen2-7b at full width and depth in bf16 through
+   ``repro_torch.launch.serve.serve`` (B 8, 2,048-token prompts from
+   ``data.pipeline.prefetched``, 32 generated tokens): prefill ms, decode
+   ms a token, tokens/s, peak memory and each phase's share of its bound;
+   then one prefill and 4 decode steps of the same shapes under
+   ``torch.profiler``, for the device's busy share.  Then holds that model
+   on the card: bf16 against the same weights in
+   fp32 (relative L2 of the last logits, a limit shown to reject a zeroed
+   ``wo`` and RoPE positions off by one), and fp32 prefill + decode
+   against the full forward at the JAX test's 2e-2.
+6. Measures the movement layer: host<->device copy rates, the
+   ``PrefetchIterator`` at depths 0/1/2 beside a device workload of about
+   the batch's copy time (every batch held bit for bit), ``fetch_params`` /
+   ``offload_params`` of one full-width layer, and the four remat
+   policies on a 2-layer full-width model.  With two cards, launches each
+   kernel on device 1 after device 0.
+7. Runs CG, Graph500 and the FFT convolutions at their default sizes, and
    the kernel timing rows of ``repro_torch.bench.lm_bench``.
 
-Prints a ``{"kernels": [...]}`` line, then as its last line
+Prints ``{"serve_path": ...}``, ``{"model_checks": ...}``,
+``{"movement_path": ...}`` and ``{"kernels": [...]}`` lines, then as its last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 Exits non-zero, with no such line, if a check fails, or if there is no CUDA
 card or no port beside this script.
@@ -150,6 +167,37 @@ PAGED_SHORT_LENS = (640, 64, 3)
 # P per 64-key tile, passes it on the CPU, and each one-tile fault of the
 # plain version fails it (tests/test_torch_attention_kernels.py).
 FLASH_FULL_ATOL, FLASH_FULL_RTOL, FLASH_FULL_ROW_RTOL = 1e-4, 2.0**-8, 2.0**-6
+
+# The serving path: qwen2-7b at full width and depth, bf16, its
+# prompts through data.pipeline.prefetched.
+SERVE_MODEL, SERVE_B, SERVE_PROMPT, SERVE_GEN = "qwen2-7b", 8, 2048, 32
+# The model held on the card: fp32 prefill of CHECK_S tokens then
+# CHECK_EXTRA teacher-forced decode steps against the full forward, at the
+# JAX test's limit (tests/test_models_smoke.py:108-110).
+CHECK_S, CHECK_EXTRA = 256, 4
+MODEL_ATOL = MODEL_RTOL = 2e-2
+# bf16 against the same weights in fp32: the last-position logits of a
+# prefill may differ by at most BF16_LOGIT_REL of their fp32 L2 norm, per
+# sequence.  Each of two faults, run in fp32, must move them further: wo
+# of layer WO_FAULT_LAYER zeroed, and queries rotated one position ahead
+# of the keys in layer ROPE_FAULT_LAYER.  The RoPE fault sits in layer 0:
+# with random weights the attention of deeper layers is near uniform, and
+# there the same offset moves the logits less than bf16 does
+# (tests/test_torch_models.py holds all three on a narrow qwen2-7b).
+BF16_LOGIT_REL = 0.05
+WO_FAULT_LAYER, ROPE_FAULT_LAYER = 14, 0
+# The movement layer: copy rates of a 256 MiB buffer (median of 5); the
+# prefetch iterator over qwen2-vl-2b's vlm batch (B 8, S 4,096, d 1,536),
+# PREFETCH_DISTINCT distinct batches of synthetic_batches cycled over
+# PREFETCH_STEPS steps, so that a batch handed over a step early or late
+# differs from the one expected; streaming of one qwen2-7b layer; remat of a
+# 2-layer qwen2-7b in fp32 at S 2,048, the policies held to "none" at the
+# JAX test's 1e-5 (tests/test_perf_variants.py:45-46).
+COPY_BYTES, COPY_REPS = 256 * 2**20, 5
+PREFETCH_MODEL, PREFETCH_B, PREFETCH_S = "qwen2-vl-2b", 8, 4096
+PREFETCH_STEPS, PREFETCH_DISTINCT, PREFETCH_WARM = 16, 4, 3
+REMAT_S, REMAT_ATOL = 2048, 1e-5
+DECODE_PROFILE_STEPS = 4
 
 
 def row_scaled_limit(want, atol, rtol, row_rtol=0.0):
@@ -809,7 +857,7 @@ class Smoke:
         g = torch.Generator(device=DEVICE).manual_seed(2)
         inputs = []
         for model, window in FLASH_CASES:
-            cfg = get_config(model)
+            cfg = get_config(model).model
             assert cfg.sliding_window == window, (model, cfg.sliding_window)
             hq, hkv, dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
             inputs.append([torch.randn((1, FLASH_S, h, dh), generator=g, device=DEVICE,
@@ -902,6 +950,452 @@ class Smoke:
                              f"{best} backend, the fastest of "
                              + ", ".join(f"{n} {t:.3f} ms" for n, t in times.items()))
 
+    # -- the serving path and the movement layer --------------------------
+
+    def serve_path(self, tf, init_params, init_caches):
+        """``launch.serve.serve`` on qwen2-7b at full width and depth in
+        bf16, its prompts from ``data.pipeline.prefetched`` (depth 2); then
+        a profiled prefill and decode steps of the same shapes."""
+        torch = self.torch
+        from repro_torch.configs import ShapeConfig, get_config
+        from repro_torch.data.pipeline import prefetched
+        from repro_torch.launch.serve import serve
+
+        cfg = get_config(SERVE_MODEL).model
+        self.start_app(f"serve {SERVE_MODEL} full width B={SERVE_B} prompt={SERVE_PROMPT} "
+                       f"gen={SERVE_GEN} {cfg.dtype}")
+        prompts = prefetched(cfg, ShapeConfig("serve", SERVE_PROMPT, SERVE_B, "prefill"),
+                             device=DEVICE, depth=2)
+        rec = {}
+        toks = serve(SERVE_MODEL, reduced=False, batch=SERVE_B, prompt_len=SERVE_PROMPT,
+                     gen=SERVE_GEN, device=DEVICE, prompts=prompts, record=rec)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated()
+        counts = {name: fn.launches for name, fn in self.counters.items()}
+        logits = rec.pop("logits")
+        self.expect(f"serve: tokens {toks.shape} == ({SERVE_B}, {SERVE_GEN}) in "
+                    f"[0, {cfg.vocab_size})", toks.shape == (SERVE_B, SERVE_GEN)
+                    and 0 <= toks.min() and toks.max() < cfg.vocab_size)
+        self.expect(f"serve: {len(logits)} logits of shape {tuple(logits[0].shape)}, "
+                    "all finite", len(logits) == SERVE_GEN and all(
+                        tuple(x.shape) == (SERVE_B, cfg.padded_vocab)
+                        and bool(torch.isfinite(x).all()) for x in logits))
+        del logits, prompts
+        self.free()
+        # bounds: the layers' matrix weights for every prompt token, the
+        # head for the last position, and causal attention (QK^T and PV);
+        # a decode step reads every weight but the embedding table once,
+        # the embedding rows of its tokens and the live K/V rows
+        L, d, V = cfg.num_layers, cfg.d_model, cfg.padded_vocab
+        mats = L * (cfg.attn_params_per_layer() + cfg.ffn_params_per_layer())
+        pairs = SERVE_PROMPT * (SERVE_PROMPT + 1) // 2
+        prefill_flops = (2 * mats * SERVE_B * SERVE_PROMPT + 2 * d * V * SERVE_B
+                         + 4 * cfg.num_heads * cfg.head_dim * pairs * L * SERVE_B)
+        prefill_bound = prefill_flops / PEAK_BF16_FLOPS * 1e3
+        weight_bytes = 2 * (L * cfg.params_per_layer() + V * d + d + SERVE_B * d)
+        mean_live = SERVE_PROMPT + SERVE_GEN / 2  # positions attended, over the steps
+        kv_bytes = 2 * 2 * L * SERVE_B * mean_live * cfg.num_kv_heads * cfg.head_dim
+        decode_bound = (weight_bytes + kv_bytes) / PEAK_BYTES_PER_S * 1e3
+        out = {"model": SERVE_MODEL, "batch": SERVE_B, "prompt_len": SERVE_PROMPT,
+               "gen": SERVE_GEN, "dtype": cfg.dtype, "params": cfg.total_params(),
+               **rec, "max_memory_allocated": peak,
+               "prefill_flops": prefill_flops, "prefill_bound_ms": prefill_bound,
+               "prefill_share": prefill_bound / rec["prefill_ms"],
+               "decode_bytes": weight_bytes + kv_bytes, "decode_bound_ms": decode_bound,
+               "decode_share": decode_bound / rec["decode_ms_per_token"],
+               "kernel_launches": counts, "power_limit": self.power_limit}
+        print(f"serve: prefill {rec['prefill_ms']:.1f} ms (bound {prefill_bound:.1f} ms), "
+              f"decode {rec['decode_ms_per_token']:.2f} ms/token (bound "
+              f"{decode_bound:.2f} ms), {rec['tokens_per_s']:.1f} tokens/s, peak {peak} "
+              f"bytes; the model calls the plain attention, kernel launches {counts}")
+        out["profile"] = self.serve_profile(tf, init_params, init_caches)
+        print(json.dumps({"serve_path": out}))
+
+    def serve_profile(self, tf, init_params, init_caches) -> dict:
+        """Where the serving time goes: one prefill and DECODE_PROFILE_STEPS
+        decode steps of the same model and shapes under torch.profiler
+        (fresh seeded weights, zero caches at the prompt's length): the
+        host's wall time beside the summed time of the device's kernels,
+        and the kernels that take the most."""
+        torch = self.torch
+        from torch.autograd import DeviceType
+        from torch.profiler import ProfilerActivity, profile
+
+        from repro_torch.configs import get_config
+
+        cfg = get_config(SERVE_MODEL).model
+        self.free()
+        g = torch.Generator(device=DEVICE).manual_seed(10)
+        params = init_params(cfg, g, DEVICE)
+        toks = torch.randint(0, cfg.vocab_size, (SERVE_B, SERVE_PROMPT), generator=g,
+                             device=DEVICE)
+        caches = init_caches(cfg, SERVE_B, SERVE_PROMPT + SERVE_GEN, DEVICE)
+        step = {"tokens": toks[:, -1]}
+        tf.decode_step(params, step, caches, SERVE_PROMPT, cfg)  # warm-up
+        out = {}
+        for name, fn, n in (
+                ("prefill", lambda: tf.prefill(params, {"tokens": toks}, cfg), 1),
+                ("decode", lambda: tf.decode_step(params, step, caches, SERVE_PROMPT, cfg),
+                 DECODE_PROFILE_STEPS)):
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                for _ in range(n):
+                    fn()
+                torch.cuda.synchronize()
+                wall_ms = (time.perf_counter() - t0) * 1e3 / n
+            by_name = {}
+            for e in prof.events():
+                if e.device_type == DeviceType.CUDA:
+                    by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
+            busy_ms = sum(by_name.values()) / 1e3 / n
+            top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
+            out[name] = {"wall_ms": wall_ms, "kernels": sum(1 for e in prof.events()
+                                                            if e.device_type == DeviceType.CUDA) // n,
+                         "device_busy_ms": busy_ms if by_name else None,
+                         "device_busy_share": busy_ms / wall_ms if by_name else None,
+                         "top_kernels_ms": {k[:80]: v / 1e3 / n for k, v in top}}
+            print(f"profile {name}: wall {wall_ms:.2f} ms, device kernels "
+                  + (f"{busy_ms:.2f} ms ({busy_ms / wall_ms:.3f} busy) in "
+                     f"{out[name]['kernels']} launches" if by_name else "not measured "
+                     "(the profiler saw no device activity)"))
+        del params, caches, toks
+        self.free()
+        return out
+
+    def model_checks(self, tf, init_params, init_caches):
+        """qwen2-7b at full width and depth held on the card: bf16 against
+        the same weights in fp32, two injected faults, and fp32 prefill +
+        decode against the full forward."""
+        import dataclasses
+
+        torch = self.torch
+        from repro_torch.configs import get_config
+
+        cfg = get_config(SERVE_MODEL).model
+        cfg32 = dataclasses.replace(cfg, dtype="float32")
+        print(f"== model checks: {SERVE_MODEL} full width, S={CHECK_S} + {CHECK_EXTRA}")
+        self.free()
+        torch.cuda.reset_peak_memory_stats()
+        g = torch.Generator(device=DEVICE).manual_seed(7)
+        params = init_params(cfg, g, DEVICE)
+        toks = torch.randint(0, cfg.vocab_size, (1, CHECK_S + CHECK_EXTRA), generator=g,
+                             device=DEVICE)
+        prompt = {"tokens": toks[:, :CHECK_S]}
+        V = cfg.vocab_size  # the padding columns hold -1e30 on both sides
+
+        def last_logits(c):
+            return tf.prefill(params, prompt, c)[0][:, :V].float()
+
+        got_bf16 = last_logits(cfg)
+        params.float()  # parameter by parameter: the bf16 copy goes as fp32 comes
+        self.free()
+        want = last_logits(cfg32)
+
+        def rel(x):
+            return ((x - want).norm(dim=-1) / want.norm(dim=-1)).max().item()
+
+        err = rel(got_bf16)
+        self.expect(f"model bf16 vs fp32 last logits: rel L2 {err:.4e} <= {BF16_LOGIT_REL}",
+                    err <= BF16_LOGIT_REL)
+        # fault 1: one layer's wo zeroed
+        wo = params.blocks[WO_FAULT_LAYER].attn.wo
+        saved = wo.detach().clone()
+        with torch.no_grad():
+            wo.zero_()
+        try:
+            fault_wo = rel(last_logits(cfg32))
+        finally:
+            with torch.no_grad():
+                wo.copy_(saved)
+        del saved
+        # fault 2: one layer's queries rotated one position ahead of its keys
+        rotate, calls = tf._rotate, [0]
+
+        def off_by_one(q, k, positions, c):
+            layer, calls[0] = calls[0], calls[0] + 1
+            if layer != ROPE_FAULT_LAYER:
+                return rotate(q, k, positions, c)
+            return rotate(q, k, positions + 1, c)[0], rotate(q, k, positions, c)[1]
+
+        tf._rotate = off_by_one
+        try:
+            fault_rope = rel(last_logits(cfg32))
+        finally:
+            tf._rotate = rotate
+        for name, e in ((f"wo of layer {WO_FAULT_LAYER} zeroed", fault_wo),
+                        (f"RoPE positions off by one in layer {ROPE_FAULT_LAYER}",
+                         fault_rope)):
+            self.expect(f"the bf16 limit catches {name}: rel L2 {e:.4e} > {BF16_LOGIT_REL}",
+                        e > BF16_LOGIT_REL)
+
+        # fp32 prefill + teacher-forced decode == the full forward
+        with torch.no_grad():
+            full = params({"tokens": toks})[:, -1, :V]
+        _, c = tf.prefill(params, prompt, cfg32)
+        caches = init_caches(cfg32, 1, CHECK_S + CHECK_EXTRA, DEVICE)
+        for name in ("k", "v"):
+            caches[name][:, :, :CHECK_S] = c[name]
+        del c
+        for i in range(CHECK_EXTRA):
+            out, caches = tf.decode_step(params, {"tokens": toks[:, CHECK_S + i]}, caches,
+                                         CHECK_S + i, cfg32)
+        dec_err = self.check(f"model fp32 prefill {CHECK_S} + {CHECK_EXTRA} decode steps vs "
+                             "full forward (full width)", out[:, :V], full, MODEL_ATOL,
+                             MODEL_RTOL)
+        peak = torch.cuda.max_memory_allocated()
+        self.expect(f"model checks peak {peak} bytes < 70 GB", peak < 70e9)
+        print(json.dumps({"model_checks": {
+            "model": SERVE_MODEL, "bf16_vs_fp32_rel_l2": err, "limit": BF16_LOGIT_REL,
+            "fault_wo_zeroed_rel_l2": fault_wo, "fault_layer_wo": WO_FAULT_LAYER,
+            "fault_rope_off_by_one_rel_l2": fault_rope, "fault_layer_rope": ROPE_FAULT_LAYER,
+            "prefill_decode_vs_full_max_abs_err": dec_err,
+            "prefill_decode_tol": [MODEL_ATOL, MODEL_RTOL], "max_memory_allocated": peak}}))
+        del params, caches, got_bf16, want, full, out
+        self.free()
+
+    def copy_rates(self) -> dict:
+        """Host<->device rates of a COPY_BYTES buffer, pinned and pageable,
+        median of COPY_REPS CUDA-event timings."""
+        torch = self.torch
+        n = COPY_BYTES // 4
+        dev = torch.empty(n, device=DEVICE)
+        pinned = torch.ones(n, pin_memory=True)
+        pageable = torch.ones(n)
+        cases = {"h2d_pinned": lambda: dev.copy_(pinned, non_blocking=True),
+                 "h2d_pageable": lambda: dev.copy_(pageable),
+                 "d2h_pinned": lambda: pinned.copy_(dev, non_blocking=True),
+                 "d2h_pageable": lambda: pageable.copy_(dev)}
+        rates = {name: COPY_BYTES / (self.time_ms(fn, reps=COPY_REPS) / 1e3)
+                 for name, fn in cases.items()}
+        print("copy rates (bytes/s, 256 MiB): " + ", ".join(
+            f"{k} {v:.4e}" for k, v in rates.items()))
+        return rates
+
+    def prefetch_path(self, rates) -> dict:
+        """ms per step of a loop that takes a batch and runs a fixed device
+        workload, with no iterator (a synchronous pageable copy) and with
+        the PrefetchIterator at depths 1 and 2; then every delivered batch
+        held bit for bit against the batch synthetic_batches made, under a
+        slow consumer."""
+        import itertools
+
+        torch = self.torch
+        from repro_torch.configs import ShapeConfig, get_config
+        from repro_torch.core.prefetch import PrefetchIterator
+        from repro_torch.data.pipeline import synthetic_batches
+
+        cfg = get_config(PREFETCH_MODEL).model
+        shape = ShapeConfig("prefetch", PREFETCH_S, PREFETCH_B, "train")
+        t0 = time.perf_counter()
+        batches = list(itertools.islice(synthetic_batches(cfg, shape), PREFETCH_DISTINCT))
+        make_s = time.perf_counter() - t0
+        nbytes = sum(a.nbytes for a in batches[0].values())
+        ref = [{k: torch.from_numpy(v).to(DEVICE) for k, v in b.items()} for b in batches]
+        staged = {k: torch.from_numpy(v).pin_memory() for k, v in batches[0].items()}
+        dst = {k: torch.empty_like(v) for k, v in ref[0].items()}
+        t_copy = self.time_ms(lambda: [dst[k].copy_(staged[k], non_blocking=True)
+                                       for k in staged], reps=COPY_REPS)
+        stage_ms = []
+        for _ in range(3):  # the host copy of a NumPy batch into pinned memory
+            t0 = time.perf_counter()
+            for k, v in batches[1].items():
+                staged[k].copy_(torch.from_numpy(v))
+            stage_ms.append((time.perf_counter() - t0) * 1e3)
+        del staged, dst
+        a = torch.randn((4096, 4096), device=DEVICE, dtype=torch.bfloat16)
+        c = torch.empty_like(a)
+        one = self.time_ms(lambda: torch.mm(a, a, out=c))
+        reps = max(1, round(t_copy / one))
+
+        def work():
+            for _ in range(reps):
+                torch.mm(a, a, out=c)
+
+        t_work = self.time_ms(work)
+        self.expect(f"prefetch workload {t_work:.3f} ms within 0.5-2x of the batch's copy "
+                    f"{t_copy:.3f} ms", 0.5 <= t_work / t_copy <= 2.0)
+
+        def run(depth, steps, slow=False):
+            src = (batches[i % PREFETCH_DISTINCT] for i in range(steps))
+            it = (({k: torch.from_numpy(v).to(DEVICE) for k, v in b.items()} for b in src)
+                  if depth == 0 else PrefetchIterator(src, DEVICE, depth=depth))
+            bad = torch.zeros((), dtype=torch.int64, device=DEVICE)
+            n = 0
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for i, b in enumerate(it):
+                work()
+                if slow:  # a slow consumer: a race of the copies would show
+                    work()
+                    work()
+                    for k, v in b.items():
+                        bad += (v != ref[i % PREFETCH_DISTINCT][k]).sum()
+                n += 1
+            torch.cuda.synchronize()
+            return (time.perf_counter() - t0) / max(n, 1) * 1e3, n, int(bad)
+
+        ms = {}
+        for depth in (0, 1, 2):
+            run(depth, PREFETCH_WARM)
+            ms[depth], n, _ = run(depth, PREFETCH_STEPS)
+        overlap = {d: (ms[0] - ms[d]) / t_copy for d in (1, 2)}
+        for depth in (1, 2):
+            _, n, bad = run(depth, PREFETCH_STEPS, slow=True)
+            self.expect(f"prefetch depth {depth}: {n} batches under a slow consumer equal "
+                        f"synthetic_batches' bit for bit ({bad} elements differ)",
+                        n == PREFETCH_STEPS and bad == 0)
+        print(f"prefetch {nbytes} bytes a batch: copy {t_copy:.3f} ms (pinned), host staging "
+              f"{statistics.median(stage_ms):.3f} ms, workload {t_work:.3f} ms; ms/step "
+              f"sync {ms[0]:.3f}, depth 1 {ms[1]:.3f}, depth 2 {ms[2]:.3f}; overlap "
+              f"{overlap[1]:.3f} / {overlap[2]:.3f} of the copy")
+        del ref, a, c
+        self.free()
+        return {"model": PREFETCH_MODEL, "batch_bytes": nbytes, "steps": PREFETCH_STEPS,
+                "distinct_batches": PREFETCH_DISTINCT, "make_batches_s": make_s,
+                "copy_ms": t_copy, "copy_bytes_per_s": nbytes / (t_copy / 1e3),
+                "host_staging_ms": statistics.median(stage_ms), "workload_ms": t_work,
+                "workload_matmuls": reps, "ms_per_step": {f"depth{d}": ms[d] for d in ms},
+                "overlap": {f"depth{d}": overlap[d] for d in overlap}}
+
+    def streaming_path(self, Block) -> dict:
+        """fetch_params / offload_params of one full-width qwen2-7b layer."""
+        torch = self.torch
+        from repro_torch.configs import get_config
+        from repro_torch.core.streaming import fetch_params, offload_params
+
+        cfg = get_config(SERVE_MODEL).model
+        g = torch.Generator(device=DEVICE).manual_seed(8)
+        layer = {n: p.detach() for n, p in
+                 Block(cfg, torch.bfloat16, DEVICE, g).named_parameters()}
+        nbytes = sum(t.numel() * t.element_size() for t in layer.values())
+        host = {}
+
+        def offload():
+            host.update(offload_params(layer, DEVICE))
+
+        off_ms = self.time_ms(offload, reps=COPY_REPS)
+        self.expect("offload_params gives pinned host copies",
+                    all(t.is_pinned() and not t.is_cuda for t in host.values()))
+        back = {}
+        fetch_ms = self.time_ms(lambda: back.update(fetch_params(host, DEVICE)),
+                                reps=COPY_REPS)
+        torch.cuda.synchronize()
+        self.expect("fetch_params(offload_params(layer)) == layer bit for bit",
+                    all(torch.equal(back[n], layer[n]) for n in layer))
+        out = {"params": sum(t.numel() for t in layer.values()), "bytes": nbytes,
+               "offload_ms": off_ms, "fetch_ms": fetch_ms,
+               "offload_bytes_per_s": nbytes / (off_ms / 1e3),
+               "fetch_bytes_per_s": nbytes / (fetch_ms / 1e3)}
+        print(f"streaming one {SERVE_MODEL} layer ({nbytes} bytes bf16): offload "
+              f"{off_ms:.3f} ms, fetch {fetch_ms:.3f} ms")
+        del layer, host, back
+        self.free()
+        return out
+
+    def remat_path(self, tf, init_params) -> dict:
+        """Loss and gradients of a 2-layer full-width qwen2-7b in fp32 under
+        each remat policy, held to "none"; the peak device memory of each."""
+        import dataclasses
+
+        torch = self.torch
+        from repro_torch.configs import get_config
+        from repro_torch.core.streaming import checkpoint_layer
+
+        cfg = dataclasses.replace(get_config(SERVE_MODEL).model, num_layers=2,
+                                  dtype="float32")
+        g = torch.Generator(device=DEVICE).manual_seed(9)
+        params = init_params(cfg, g, DEVICE)
+        toks = torch.randint(0, cfg.vocab_size, (1, REMAT_S), generator=g, device=DEVICE)
+        batch = {"tokens": toks, "labels": torch.roll(toks, -1, dims=1)}
+        # the first checkpoint of a process pays a one-time set-up (seconds:
+        # imports inside torch.utils.checkpoint), kept out of the rows
+        t0 = time.perf_counter()
+        x = torch.ones(8, device=DEVICE, requires_grad=True)
+        for kind in ("full", "dots", "offload"):
+            checkpoint_layer(lambda y: (y * 2).sin(), kind)(x).sum().backward()
+        torch.cuda.synchronize()
+        first_use_s = time.perf_counter() - t0
+        out, ref = {"checkpoint_first_use_s": first_use_s}, None
+        for kind in ("none", "full", "dots", "offload"):
+            params.zero_grad(set_to_none=True)
+            self.free()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            loss = tf.loss_fn(params, batch, cfg, remat=kind)
+            loss.backward()
+            torch.cuda.synchronize()
+            row = {"ms": (time.perf_counter() - t0) * 1e3,
+                   "max_memory_allocated": torch.cuda.max_memory_allocated(),
+                   "peak_above_params": torch.cuda.max_memory_allocated() - base,
+                   "loss": loss.item()}
+            grads = [p.grad for p in params.parameters()]
+            if ref is None:
+                ref = (loss.detach(), [x.clone() for x in grads])
+            else:
+                row["loss_err"] = abs(loss.item() - ref[0].item())
+                row["grad_max_abs_err"] = max((x - y).abs().max().item()
+                                              for x, y in zip(grads, ref[1]))
+                self.expect(f"remat {kind}: loss and gradients == none's (loss err "
+                            f"{row['loss_err']:.3e}, grad err {row['grad_max_abs_err']:.3e}"
+                            f" <= {REMAT_ATOL})", row["loss_err"] <= REMAT_ATOL
+                            and row["grad_max_abs_err"] <= REMAT_ATOL)
+            out[kind] = row
+            print(f"remat {kind}: {row['ms']:.1f} ms, peak {row['max_memory_allocated']} "
+                  f"bytes ({row['peak_above_params']} above what was allocated before)")
+            del loss, grads
+        del params, ref
+        self.free()
+        return out
+
+    def movement_path(self, tf, init_params, Block):
+        """The movement layer on the card: copy rates, the prefetch
+        iterator, layer streaming and the remat policies."""
+        print("== movement layer: copy rates, PrefetchIterator, streaming, remat")
+        self.free()
+        rates = self.copy_rates()
+        prefetch = self.prefetch_path(rates)
+        streaming = self.streaming_path(Block)
+        remat = self.remat_path(tf, init_params)
+        print(json.dumps({"movement_path": {
+            "copy_bytes_per_s": rates, "prefetch": prefetch, "streaming": streaming,
+            "remat": remat, "power_limit": self.power_limit}}))
+
+    def second_device(self):
+        """Each kernel launched on device 1 after device 0: the shared-memory
+        limit must be raised on each device, not once per process."""
+        torch, k = self.torch, self.kernels
+        n = torch.cuda.device_count()
+        if n < 2:
+            print(f"second-device launches: not run ({n} CUDA device)")
+            return
+        for dev in ("cuda:0", "cuda:1"):
+            def r(*shape, dtype=torch.float32):
+                return torch.randn(*shape, device=dev).to(dtype)
+            s, x, t = (torch.empty(4096, device=dev).uniform_(lo, hi)
+                       for lo, hi in ((5, 30), (1, 100), (0.25, 10)))
+            self.check(f"black_scholes on {dev}", k.black_scholes(s, x, t)[0],
+                       k.black_scholes(s, x, t, use_kernel=False)[0], 1e-4)
+            a, b = r(300, 700), r(700, 250)
+            self.check(f"matmul on {dev}", k.matmul(a, b), k.matmul(a, b, use_kernel=False),
+                       1e-3 * math.sqrt(700), 1e-2)
+            g = r(16, 24, 136)
+            coef = torch.tensor([0.5, 0.1, 0.05, 0.02, 0.01], device=dev)
+            self.check(f"fdtd3d_step on {dev}", k.fdtd3d_step(g, coef),
+                       k.fdtd3d_step(g, coef, use_kernel=False), 1e-4)
+            q, kk, v = r(1, 200, 28, 128, dtype=torch.bfloat16), *(
+                r(1, 200, 4, 128, dtype=torch.bfloat16) for _ in range(2))
+            self.check(f"flash bf16 on {dev}", k.flash_attention(q, kk, v),
+                       k.flash_attention(q, kk, v, use_kernel=False), BF16_ATOL, BF16_RTOL)
+            kp, vp = (r(10, 32, 8, 128, dtype=torch.bfloat16) for _ in range(2))
+            qd = r(2, 64, 128, dtype=torch.bfloat16)
+            bt = torch.arange(10, dtype=torch.int32, device=dev)[:8].reshape(2, 4)
+            sl = torch.tensor([128, 77], dtype=torch.int32, device=dev)
+            self.check(f"paged bf16 on {dev}", k.paged_attention(qd, kp, vp, bt, sl),
+                       k.paged_attention(qd, kp, vp, bt, sl, use_kernel=False),
+                       BF16_ATOL, BF16_RTOL)
+
     def kernel_timing_rows(self, kernel_rows):
         print("== kernel timing rows (repro_torch.bench.lm_bench.kernel_rows)")
         for row in kernel_rows(DEVICE):
@@ -955,7 +1449,8 @@ def main() -> int:
         from repro_torch.bench.lm_bench import kernel_rows
         from repro_torch.configs import get_config
         from repro_torch.examples.oversubscribe_demo import paged_decode
-        from repro_torch.models import attention
+        from repro_torch.models import attention, init_caches, init_params
+        from repro_torch.models import transformer as tf
         from repro_torch.umbench.apps import (bfs, black_scholes, cg, conv_fft,
                                               fdtd3d, matmul)
     except ImportError as e:
@@ -972,6 +1467,10 @@ def main() -> int:
     smoke.main_path()
     smoke.paged_path(paged_decode)
     smoke.flash_path(get_config, attention)
+    smoke.serve_path(tf, init_params, init_caches)
+    smoke.model_checks(tf, init_params, init_caches)
+    smoke.movement_path(tf, init_params, tf.Block)
+    smoke.second_device()
     smoke.plain_apps()
     smoke.kernel_timing_rows(kernel_rows)
     print(json.dumps({"kernels": smoke.rows}))

@@ -1,0 +1,123 @@
+"""Layer-weight streaming + offloaded remat (host-tier oversubscription).
+
+The counterpart of ``repro.core.streaming``.  ``fetch_params`` copies
+parameters that a ResidencyPlan places in HOST space to the card at their
+point of use; from pinned memory the copies are asynchronous on the current
+stream, so they overlap what the host queues next.  ``offload_params``
+evicts them to pinned host memory.
+
+Where the caller runs on the CPU there is no host tier: the copies are
+identities and the plan is carried analytically, as in the reference.
+"""
+from __future__ import annotations
+
+import functools
+
+import torch
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
+
+from repro_torch.core.placement import _pinned_copy, backend_supports_memory_kinds
+from repro_torch.device import resolve
+
+REMAT_KINDS = ("none", "dots", "full", "offload")
+# the matrix products whose outputs "dots" keeps for the backward pass
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default,
+         torch.ops.aten.bmm.default)
+
+
+def _map_tensors(fn, tree):
+    if isinstance(tree, dict):
+        return {k: _map_tensors(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_map_tensors(fn, v) for v in tree)
+    return fn(tree) if isinstance(tree, torch.Tensor) else tree
+
+
+def fetch_params(tree, device=None):
+    """Host->device fetch of a tree of tensors (dicts, lists, tuples) on the
+    current stream; asynchronous for pinned sources.  ``device=None`` is
+    the card and raises without one; on the CPU it is the identity."""
+    dev = resolve(device)
+    if not backend_supports_memory_kinds(dev):
+        return tree
+    return _map_tensors(lambda x: x.to(dev, non_blocking=True), tree)
+
+
+def offload_params(tree, device=None):
+    """Device->host eviction of a tree of tensors into pinned memory: every
+    copy is issued on the current stream, then the stream is waited for
+    once, so the host copies can be read at once.  Identity on the CPU."""
+    dev = resolve(device)
+    if not backend_supports_memory_kinds(dev):
+        return tree
+    out = _map_tensors(_pinned_copy, tree)
+    torch.cuda.current_stream(dev).synchronize()
+    return out
+
+
+def _save_all(ctx, op, *args, **kwargs):
+    return CheckpointPolicy.MUST_SAVE
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    return (CheckpointPolicy.MUST_SAVE if op in _DOTS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _save_nothing(ctx, op, *args, **kwargs):
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def remat_policy(kind: str, device=None):
+    """Activation-residency policy, as a selective-checkpoint policy
+    function (what the forward pass keeps for the backward pass).
+
+    - "none": save everything (no remat)
+    - "dots": save the outputs of the matrix products (``mm``, ``addmm``,
+      ``bmm``), recompute the rest
+    - "full": save nothing; recompute (the standard big-model choice)
+    - "offload": on a device with a host tier, save everything but in
+      pinned host memory (``checkpoint_layer`` packs it there); elsewhere
+      "full", as the reference falls back on a backend without memory kinds
+    """
+    if kind not in REMAT_KINDS:
+        raise ValueError(f"unknown remat policy {kind!r}")
+    if kind == "none":
+        return _save_all
+    if kind == "dots":
+        return _save_dots
+    if kind == "offload" and backend_supports_memory_kinds(
+            torch.device("cpu") if device is None else device):
+        return _save_all
+    return _save_nothing
+
+
+def _device_of(args) -> torch.device:
+    found = []
+    _map_tensors(found.append, args)
+    return found[0].device if found else torch.device("cpu")
+
+
+def checkpoint_layer(fn, kind: str):
+    """``fn`` under remat policy ``kind``: "none" is ``fn`` itself, "full"
+    is ``torch.utils.checkpoint`` (non-reentrant), "dots" selective
+    checkpointing with ``remat_policy("dots")``, and "offload" runs ``fn``
+    under ``torch.autograd.graph.save_on_cpu(pin_memory=True)`` when its
+    tensors are on a CUDA device ("full" on the CPU)."""
+    policy = remat_policy(kind)  # raises on an unknown name
+    if kind == "none":
+        return fn
+
+    @functools.wraps(fn)
+    def wrapped(*args):
+        dev = _device_of(args)
+        if kind == "offload" and remat_policy(kind, dev) is _save_all:
+            with torch.autograd.graph.save_on_cpu(pin_memory=True):
+                return fn(*args)
+        if kind == "dots":
+            return checkpoint(fn, *args, use_reentrant=False, context_fn=functools.partial(
+                create_selective_checkpoint_contexts, policy))
+        return checkpoint(fn, *args, use_reentrant=False)
+
+    return wrapped

@@ -34,7 +34,7 @@ def paged_decode(model: str | ModelConfig = "qwen2-72b", *, batch: int = 2,
     and ``out`` (B, Hq, Dh), computed by the paged attention kernel on a
     CUDA device and by its plain version on the CPU.
     """
-    cfg = get_config(model) if isinstance(model, str) else model
+    cfg = get_config(model).model if isinstance(model, str) else model
     dev = resolve(device)
     hq, hkv, dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     npages = batch * pages
@@ -54,7 +54,7 @@ def paged_decode(model: str | ModelConfig = "qwen2-72b", *, batch: int = 2,
 
 
 # The demo's own toy geometry: B=2, Hq=8, Hkv=2, Dh=64, 8 pages of 64.
-TOY = dataclasses.replace(get_config("qwen2-72b"), name="toy", num_heads=8,
+TOY = dataclasses.replace(get_config("qwen2-72b").model, name="toy", num_heads=8,
                           num_kv_heads=2, head_dim=64)
 
 

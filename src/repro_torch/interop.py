@@ -29,3 +29,51 @@ def to_torch(tree, device):
     if hasattr(tree, "__array__"):
         return _leaf(tree, device)
     return tree
+
+
+def params_from_jax(tree, cfg, device) -> "torch.nn.Module":
+    """The reference's parameter tree (``repro.models.init_params``) as the
+    port's ``Transformer`` on ``device``.
+
+    ``tree`` holds NumPy or JAX arrays (bf16 included) or tensors from
+    ``to_torch``; the leading L dimension of ``tree["layers"]`` is
+    unstacked into the blocks.  Every leaf must find a parameter of the
+    same shape and dtype and every parameter a leaf, or it raises.
+    """
+    from repro_torch.models.transformer import Transformer
+
+    device = torch.device(device)
+    src = to_torch(tree, "cpu")
+    model = Transformer(cfg, device)
+    want = {}
+    for name, p in model.named_parameters():
+        parts = name.split(".")
+        if parts[0] == "blocks":  # blocks.<i>.<sub>.<leaf> <- layers/<sub>/<leaf>[i]
+            want[("layers", parts[2], parts[3], int(parts[1]))] = p
+        else:
+            want[tuple(parts)] = p
+    have = {}
+
+    def walk(node, path):
+        if isinstance(node, dict):
+            for k, v in node.items():
+                walk(v, path + (k,))
+        elif path[0] == "layers":
+            for i in range(node.shape[0]):
+                have[path + (i,)] = node[i]
+        else:
+            have[path] = node
+
+    walk(src, ())
+    if set(have) != set(want):
+        raise ValueError(f"params_from_jax: the trees differ: only in JAX's "
+                         f"{sorted(set(have) - set(want))}, only in the port's "
+                         f"{sorted(set(want) - set(have))}")
+    with torch.no_grad():
+        for key, p in want.items():
+            a = have[key]
+            if a.shape != p.shape or a.dtype != p.dtype:
+                raise ValueError(f"params_from_jax: {key}: JAX has {tuple(a.shape)} "
+                                 f"{a.dtype}, the port {tuple(p.shape)} {p.dtype}")
+            p.copy_(a)
+    return model

@@ -34,6 +34,8 @@
 // may hold more than 2^31 cells.
 #include <cuda_runtime.h>
 
+#include "smem_limit.cuh"
+
 #include <cstdint>
 
 namespace {
@@ -217,13 +219,9 @@ extern "C" int um_fdtd3d_f32(const float* in, const float* coeffs, float* out,
   const int64_t gx = (X + kTX - 1) / kTX, gy = (Y + kTY - 1) / kTY;
   const int64_t gz = (Z + kZChunk - 1) / kZChunk;
   if (gx > 2147483647 || gy > 65535 || gz > 65535) return cudaErrorInvalidValue;
-  static bool configured = false;
-  if (!configured) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        fdtd3d_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
-    if (err != cudaSuccess) return err;
-    configured = true;
-  }
+  static unsigned long long configured = 0;  // a bit per device
+  const cudaError_t err = raise_smem_limit(fdtd3d_kernel, kSmem, configured);
+  if (err != cudaSuccess) return err;
   // 16-byte copies and stores need 16-byte aligned rows
   const int vec = X % 4 == 0 && (reinterpret_cast<uintptr_t>(in) |
                                  reinterpret_cast<uintptr_t>(out)) % 16 == 0;

@@ -63,6 +63,7 @@
 // SGEMM kernel.
 #include "attention_common.cuh"
 #include "hopper_common.cuh"
+#include "smem_limit.cuh"
 
 #include <cuda_bf16.h>
 
@@ -285,13 +286,9 @@ int launch(const T* q, const T* k, const T* v, T* o, int64_t B, int64_t Sq,
            int64_t Skv, int64_t Hq, int64_t Hkv, int causal, int64_t window,
            float scale, void* stream) {
   constexpr int bytes = smem_floats<DH>() * 4;
-  static bool configured = false;
-  if (!configured) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        flash_fwd_kernel<T, DH>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-    if (err != cudaSuccess) return err;
-    configured = true;
-  }
+  static unsigned long long configured = 0;  // a bit per device
+  const cudaError_t err = raise_smem_limit(flash_fwd_kernel<T, DH>, bytes, configured);
+  if (err != cudaSuccess) return err;
   const int64_t nq = (Sq + kBQ - 1) / kBQ;
   const dim3 grid(static_cast<unsigned>(nq), static_cast<unsigned>(B * Hq));
   flash_fwd_kernel<T, DH><<<grid, kThreads, bytes, static_cast<cudaStream_t>(stream)>>>(
@@ -781,13 +778,9 @@ int launch(const __nv_bfloat16* q, const __nv_bfloat16* k, const __nv_bfloat16* 
       !make_map<DH>(encode, &tk, k, B, Skv, Hkv, kBK) ||
       !make_map<DH>(encode, &tv, v, B, Skv, Hkv, kBK))
     return cudaErrorInvalidValue;
-  static bool configured = false;
-  if (!configured) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        flash_tc_kernel<DH>, cudaFuncAttributeMaxDynamicSharedMemorySize, G::kSmem);
-    if (err != cudaSuccess) return err;
-    configured = true;
-  }
+  static unsigned long long configured = 0;  // a bit per device
+  const cudaError_t err = raise_smem_limit(flash_tc_kernel<DH>, G::kSmem, configured);
+  if (err != cudaSuccess) return err;
   // a window that reaches back past position 0 for every row is no window
   const int w = window <= 0 || window >= Skv ? 0 : static_cast<int>(window);
   flash_tc_kernel<DH><<<static_cast<unsigned>(nq * B * Hq), kThreads, G::kSmem,

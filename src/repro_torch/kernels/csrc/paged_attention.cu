@@ -75,6 +75,7 @@
 //   order through the ring's shared memory, and the block writes one.
 #include "attention_common.cuh"
 #include "hopper_common.cuh"
+#include "smem_limit.cuh"
 
 #include <cuda_bf16.h>
 
@@ -838,13 +839,9 @@ int launch(const __nv_bfloat16* q, const __nv_bfloat16* kpool, const __nv_bfloat
         !make_map<DH>(encode, &tv, vpool, npages, psz, Hkv, box))
       return cudaErrorInvalidValue;
   }
-  static bool configured = false;
-  if (!configured) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        paged_tc_kernel<DH, NT>, cudaFuncAttributeMaxDynamicSharedMemorySize, Gm::kSmem);
-    if (err != cudaSuccess) return err;
-    configured = true;
-  }
+  static unsigned long long configured = 0;  // a bit per device
+  const cudaError_t smem_err = raise_smem_limit(paged_tc_kernel<DH, NT>, Gm::kSmem, configured);
+  if (smem_err != cudaSuccess) return smem_err;
   const int64_t chunk_len = chunk_pages(psz) * psz;
   const dim3 grid(static_cast<unsigned>(nchunks), static_cast<unsigned>(Hkv),
                   static_cast<unsigned>(B));

@@ -75,6 +75,7 @@
 // tiles, 8 x 8 register blocking, inputs widened to fp32 as they are staged
 // and the fp32 sum rounded to bf16 (to nearest even) as it is stored.
 #include "hopper_common.cuh"
+#include "smem_limit.cuh"
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -468,13 +469,9 @@ int launch(const float* a, const float* b, float* c, float* scratch, int64_t M, 
 
   const EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return cudaErrorNotSupported;
-  static bool configured = false;
-  if (!configured) {
-    const cudaError_t e =
-        cudaFuncSetAttribute(gemm_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
-    if (e != cudaSuccess) return e;
-    configured = true;
-  }
+  static unsigned long long configured = 0;  // a bit per device
+  const cudaError_t e = raise_smem_limit(gemm_kernel, kSmem, configured);
+  if (e != cudaSuccess) return e;
   int err, device, sms;
   if ((err = cudaGetDevice(&device)) != cudaSuccess ||
       (err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device)) !=

@@ -1,0 +1,142 @@
+"""Batched serving driver: prefill + decode loop with greedy sampling.
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-7b \\
+        --batch 4 --prompt-len 32 --gen 16 [--device cpu]
+
+The counterpart of ``repro.launch.serve``: prefill -> stacked KV caches ->
+decode loop (ring-buffer caches for SWA archs), on the card unless the
+caller asks for the CPU.  Random weights come from a seeded
+``torch.Generator`` (they cannot match ``jax.random``'s; ``params=`` takes
+weights carried across from JAX), and so do the vlm family's stub prompt
+embeddings.
+"""
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import time
+
+import numpy as np
+import torch
+
+from repro_torch.configs import ARCH_NAMES, get_config
+from repro_torch.device import resolve
+from repro_torch.models import init_caches, init_params
+from repro_torch.models import transformer as tf
+
+
+def _sync(dev: torch.device) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def _prompt_batch(cfg, prompts, batch: int, prompt_len: int, dev) -> dict:
+    """The first batch of ``prompts`` (e.g. ``data.pipeline.prefetched``):
+    its embeddings (and M-RoPE positions) for the vlm family, else its
+    tokens, each (batch, prompt_len, ...) and moved to ``dev``."""
+    b = next(iter(prompts))
+    keys = ("embeds", "positions_thw") if cfg.family == "vlm" and "embeds" in b else ("tokens",)
+    out = {k: torch.as_tensor(b[k]).to(dev) for k in keys if k in b}
+    for k, v in out.items():
+        if tuple(v.shape[:2]) != (batch, prompt_len):
+            raise ValueError(f"serve: prompts[{k!r}] is {tuple(v.shape)}, want "
+                             f"({batch}, {prompt_len}, ...)")
+    return out
+
+
+def serve(arch_name: str, *, reduced: bool = True, batch: int = 4,
+          prompt_len: int = 32, gen: int = 16, seed: int = 0, device=None,
+          params=None, prompts=None, teacher=None, record: dict | None = None):
+    """Prefill ``batch`` prompts of ``prompt_len`` tokens, then decode
+    ``gen`` tokens greedily; returns them, (batch, gen) or (batch, gen, K),
+    as NumPy.
+
+    ``params``: a ``Transformer`` on the device (default: seeded random
+    weights).  ``prompts``: an iterable of batches whose first one holds
+    the prompts (default: the reference's seeded NumPy tokens).
+    ``teacher``: tokens (batch, gen, ...) fed to the decode steps in place
+    of the generated ones (teacher forcing).  ``record``: a dict that gets
+    ``prefill_ms``, ``decode_ms_per_token``, ``tokens_per_s`` (host clock,
+    the device synchronised) and ``logits``, the prefill's last-position
+    logits followed by each decode step's.
+    """
+    arch = get_config(arch_name)
+    if reduced:
+        arch = dataclasses.replace(arch, model=arch.model.reduce())
+    cfg = arch.model
+    dev = resolve(device)
+    g = torch.Generator(device=dev).manual_seed(seed)
+    if params is None:
+        params = init_params(cfg, g, dev)
+    elif next(params.parameters()).device != dev:
+        raise ValueError(f"serve: params are on {next(params.parameters()).device}, "
+                         f"the run on {dev}")
+    max_seq = prompt_len + gen
+
+    if prompts is not None:
+        pre_batch = _prompt_batch(cfg, prompts, batch, prompt_len, dev)
+    elif cfg.family == "vlm":
+        pre_batch = {"embeds": torch.randn((batch, prompt_len, cfg.d_model),
+                                           generator=g, device=dev)}
+    else:
+        rng = np.random.default_rng(seed)
+        shape = ((batch, prompt_len, cfg.num_codebooks) if cfg.family == "audio"
+                 else (batch, prompt_len))
+        prompt = rng.integers(0, cfg.vocab_size, shape).astype(np.int32)
+        pre_batch = {"tokens": torch.from_numpy(prompt).to(dev)}
+
+    # prefill over the prompt, then copy the caches into max_seq buffers
+    _sync(dev)
+    t0 = time.perf_counter()
+    logits, caches_prompt = tf.prefill(params, pre_batch, cfg)
+    caches = init_caches(cfg, batch, max_seq, dev)
+    s_cache = min(caches["k"].shape[2], caches_prompt["k"].shape[2])
+    for key in ("k", "v"):
+        caches[key][:, :, :s_cache] = caches_prompt[key][:, :, -s_cache:]
+    del caches_prompt
+    _sync(dev)
+    prefill_s = time.perf_counter() - t0
+    kept = [logits] if record is not None else None
+
+    next_tokens = logits.argmax(dim=-1).to(torch.int32)  # (B,) or (B,K)
+    generated = [next_tokens.cpu().numpy()]
+    if teacher is not None:
+        teacher = torch.as_tensor(np.asarray(teacher), dtype=torch.int32).to(dev)
+    t0 = time.perf_counter()
+    cache_len = prompt_len
+    for i in range(gen - 1):
+        step_in = next_tokens if teacher is None else teacher[:, i]
+        logits, caches = tf.decode_step(params, {"tokens": step_in}, caches,
+                                        cache_len, cfg)
+        if kept is not None:
+            kept.append(logits)
+        next_tokens = logits.argmax(dim=-1).to(torch.int32)
+        generated.append(next_tokens.cpu().numpy())
+        cache_len += 1
+    dt = time.perf_counter() - t0
+    toks = np.stack(generated, axis=1)
+    print(f"[{arch_name}] generated {toks.shape} tokens in {dt:.2f}s "
+          f"({dt / max(gen - 1, 1) * 1e3:.1f} ms/token) on {dev}")
+    if record is not None:
+        record.update(prefill_ms=prefill_s * 1e3,
+                      decode_ms_per_token=dt / max(gen - 1, 1) * 1e3,
+                      tokens_per_s=batch * (gen - 1) / dt if dt > 0 else float("nan"),
+                      logits=kept)
+    return toks
+
+
+def main(argv=None) -> None:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", choices=ARCH_NAMES, default="qwen2-7b")
+    ap.add_argument("--batch", type=int, default=4)
+    ap.add_argument("--prompt-len", type=int, default=32)
+    ap.add_argument("--gen", type=int, default=16)
+    ap.add_argument("--device", default=None,
+                    help="torch device (default: the CUDA card)")
+    args = ap.parse_args(argv)
+    serve(args.arch, batch=args.batch, prompt_len=args.prompt_len, gen=args.gen,
+          device=args.device)
+
+
+if __name__ == "__main__":
+    main()

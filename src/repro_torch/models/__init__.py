@@ -1,3 +1,20 @@
-"""Model building blocks on PyTorch: the counterparts of ``repro.models``.
-So far the attention module, which the flash and paged attention kernels
-are held against."""
+"""Model building blocks on PyTorch: the counterparts of ``repro.models``
+(attention, common components, the MLP and the dense / vlm / audio
+transformer)."""
+from repro_torch.models.transformer import (
+    Transformer,
+    decode_step,
+    init_caches,
+    init_params,
+    loss_fn,
+    prefill,
+)
+
+__all__ = [
+    "Transformer",
+    "decode_step",
+    "init_caches",
+    "init_params",
+    "loss_fn",
+    "prefill",
+]

@@ -10,14 +10,15 @@ probabilities are cast to ``v.dtype`` before the PV product.
 Decode is split-KV (flash-decoding style): ``decode_attention_partial``
 gives a shard's (numerator, denominator, running max), and
 ``combine_decode_partials`` merges them.  The merge over a mesh axis waits
-for the port's ``torch.distributed`` slice, as does the pure-FSDP
-query-chunk branch of ``attention``.
+for the port's ``torch.distributed`` slice.
 """
 from __future__ import annotations
 
 import math
 
 import torch
+
+from repro_torch.models.common import get_sharding_mode
 
 NEG_INF = -1e30
 
@@ -60,13 +61,36 @@ def _attention_dense(q, k, v, *, causal, window, q_offset, mask, scale):
     return o.reshape(b, sq, hq, dh)
 
 
+FSDP_Q_CHUNK = 512  # query rows per block under pure-FSDP (seq unsharded)
+
+
 def attention(q, k, v, *, causal: bool = True, window: int | None = None,
               q_offset=0, mask=None, softmax_scale: float | None = None):
     """q: (B,Sq,Hq,Dh), k/v: (B,Skv,Hkv,Dh) -> (B,Sq,Hq,Dh). fp32 softmax.
 
-    The dense path, with the whole (Sq, Skv) score block in memory.
+    The dense path, with the whole (Sq, Skv) score block in memory.  Under
+    pure-FSDP (``get_sharding_mode() == "fsdp"``, the sequence unsharded)
+    queries are processed in blocks of ``FSDP_Q_CHUNK`` rows, each against
+    the KV range that its causal band and window reach, so that the fp32
+    score transient stays bounded.
     """
+    sq = q.shape[1]
     scale = softmax_scale if softmax_scale is not None else 1.0 / math.sqrt(q.shape[-1])
+    if (get_sharding_mode() == "fsdp" and mask is None
+            and sq > FSDP_Q_CHUNK and sq % FSDP_Q_CHUNK == 0):
+        outs = []
+        for i in range(sq // FSDP_Q_CHUNK):
+            q_start = q_offset + i * FSDP_Q_CHUNK
+            qc = q[:, i * FSDP_Q_CHUNK:(i + 1) * FSDP_Q_CHUNK]
+            hi, lo = k.shape[1], 0
+            if causal:
+                hi = min(hi, q_start + FSDP_Q_CHUNK)
+            if window is not None:
+                lo = max(0, q_start - window + 1)
+            outs.append(_attention_dense(
+                qc, k[:, lo:hi], v[:, lo:hi], causal=causal, window=window,
+                q_offset=q_start - lo, mask=None, scale=scale))
+        return torch.cat(outs, dim=1)
     return _attention_dense(q, k, v, causal=causal, window=window,
                             q_offset=q_offset, mask=mask, scale=scale)
 

@@ -1,0 +1,370 @@
+"""Decoder model for the dense, vlm and audio families.
+
+The counterpart of ``repro.models.transformer``.  The model is a
+``Transformer`` module (an embedding, a list of blocks with ``ln1``,
+``attn``, ``ln2`` and ``mlp``, a final norm and an optional head) whose
+parameters keep the reference's names and layouts (``wq`` is (d, Hq*Dh),
+used as ``x @ w``), so that carrying weights across
+(``repro_torch.interop.params_from_jax``) is a copy, not a transpose.  The
+reference's ``lax.scan`` over stacked layers becomes a loop over the
+blocks.  Entry points, as in the reference:
+
+  loss_fn(params, batch, cfg)                        training loss
+  prefill(params, batch, cfg)                        logits + KV caches
+  decode_step(params, batch, caches, cache_len, cfg) one-token serve step
+
+Caches are stacked, (L, B, S, Hkv, Dh).  Sliding-window archs use
+ring-buffer KV caches of window size.  One deliberate difference:
+``decode_step`` writes the new K/V row into the cache tensors it is given
+and returns them, where the reference returns new caches.
+
+The moe, ssm and hybrid families raise ``NotImplementedError``: their
+blocks come with a later slice of the port (ROADMAP.md §1 item 1).
+"""
+from __future__ import annotations
+
+import torch
+from torch import nn
+from torch.utils.checkpoint import checkpoint
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.core.streaming import checkpoint_layer
+from repro_torch.device import resolve
+from repro_torch.models import attention as attn_lib
+from repro_torch.models.common import (
+    _normal,
+    apply_mrope,
+    apply_norm,
+    apply_rope,
+    cross_entropy_loss,
+    embed_tokens,
+    get_sharding_mode,
+    text_mrope_positions,
+    unembed,
+)
+from repro_torch.models.mlp import MLP, mlp
+
+FAMILIES = ("dense", "vlm", "audio")
+
+
+def _check_family(cfg: ModelConfig) -> None:
+    if cfg.family not in FAMILIES:
+        raise NotImplementedError(
+            f"{cfg.name}: the {cfg.family} family is not ported yet; its blocks "
+            "(MoE, SSM/RWKV, hybrid) come with ROADMAP.md §1 item 1 (models, "
+            "after the dense family)")
+
+
+def _dtype(cfg: ModelConfig) -> torch.dtype:
+    return torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
+
+
+def _weight(shape, std, generator, dtype, device) -> nn.Parameter:
+    """N(0, std^2) from ``generator``, or uninitialised with none (to be
+    filled by a copy)."""
+    if generator is None:
+        return nn.Parameter(torch.empty(shape, dtype=dtype, device=device))
+    return nn.Parameter(_normal(shape, std, generator, dtype, device))
+
+
+# ---------------------------------------------------------------------------
+# Modules
+# ---------------------------------------------------------------------------
+
+class Norm(nn.Module):
+    """rmsnorm (``scale``) or layernorm (``scale``, ``bias``): ones and
+    zeros at init, as in the reference."""
+
+    def __init__(self, d: int, kind: str, dtype, device):
+        super().__init__()
+        self.scale = nn.Parameter(torch.ones(d, dtype=dtype, device=device))
+        if kind != "rmsnorm":
+            self.bias = nn.Parameter(torch.zeros(d, dtype=dtype, device=device))
+
+
+class Attention(nn.Module):
+    def __init__(self, cfg: ModelConfig, dtype, device, generator=None):
+        super().__init__()
+        d, hq, hkv, dh = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+        std = d ** -0.5
+        self.wq = _weight((d, hq * dh), std, generator, dtype, device)
+        self.wk = _weight((d, hkv * dh), std, generator, dtype, device)
+        self.wv = _weight((d, hkv * dh), std, generator, dtype, device)
+        self.wo = _weight((hq * dh, d), (hq * dh) ** -0.5, generator, dtype, device)
+        if cfg.qkv_bias:
+            for name, n in (("bq", hq * dh), ("bk", hkv * dh), ("bv", hkv * dh)):
+                setattr(self, name, nn.Parameter(
+                    torch.zeros(n, dtype=dtype, device=device)))
+
+
+class Block(nn.Module):
+    def __init__(self, cfg: ModelConfig, dtype, device, generator=None):
+        super().__init__()
+        self.ln1 = Norm(cfg.d_model, cfg.norm, dtype, device)
+        self.attn = Attention(cfg, dtype, device, generator)
+        self.ln2 = Norm(cfg.d_model, cfg.norm, dtype, device)
+        self.mlp = MLP(cfg.d_model, cfg.d_ff, cfg.activation, dtype, device, generator)
+
+
+class Transformer(nn.Module):
+    """The model's parameters.  With a ``generator`` they are drawn as the
+    reference draws them (normal weights, zero biases, unit norm scales);
+    with none they are left uninitialised, to be filled by a copy."""
+
+    def __init__(self, cfg: ModelConfig, device=None,
+                 generator: torch.Generator | None = None):
+        super().__init__()
+        _check_family(cfg)
+        self.cfg = cfg
+        dev = resolve(device)
+        dtype = _dtype(cfg)
+        shape = ((cfg.num_codebooks, cfg.padded_vocab, cfg.d_model)
+                 if cfg.num_codebooks > 1 else (cfg.padded_vocab, cfg.d_model))
+        self.embedding = _weight(shape, 0.02, generator, dtype, dev)
+        self.blocks = nn.ModuleList(Block(cfg, dtype, dev, generator)
+                                    for _ in range(cfg.num_layers))
+        self.final_norm = Norm(cfg.d_model, cfg.norm, dtype, dev)
+        self.lm_head = (None if cfg.tie_embeddings
+                        else _weight(shape, 0.02, generator, dtype, dev))
+
+    def forward(self, batch):
+        """Logits of every position (the full forward)."""
+        x, positions = embed_inputs(self, batch, self.cfg)
+        x, _ = backbone(self, x, self.cfg, positions)
+        return logits_fn(self, x, self.cfg)
+
+
+def init_params(cfg: ModelConfig, generator: torch.Generator, device=None) -> Transformer:
+    """Random weights from ``generator`` (which lives on ``device``, default
+    the card).  They cannot match ``jax.random``'s; tests carry weights
+    across with ``params_from_jax`` instead."""
+    return Transformer(cfg, device, generator)
+
+
+# ---------------------------------------------------------------------------
+# Blocks — full-sequence (train / prefill) path
+# ---------------------------------------------------------------------------
+
+def _project_qkv(p, x, cfg: ModelConfig):
+    B, S, _ = x.shape
+    q = x @ p.wq
+    k = x @ p.wk
+    v = x @ p.wv
+    if cfg.qkv_bias:
+        q, k, v = q + p.bq, k + p.bk, v + p.bv
+    q = q.reshape(B, S, cfg.num_heads, cfg.head_dim)
+    k = k.reshape(B, S, cfg.num_kv_heads, cfg.head_dim)
+    v = v.reshape(B, S, cfg.num_kv_heads, cfg.head_dim)
+    return q, k, v
+
+
+def _rotate(q, k, positions, cfg: ModelConfig):
+    if cfg.rope == "rope":
+        return apply_rope(q, k, positions, cfg.rope_theta)
+    if cfg.rope == "mrope":
+        return apply_mrope(q, k, positions, cfg.rope_theta)
+    return q, k
+
+
+def attn_sublayer(p, x, cfg: ModelConfig, positions, *, return_kv=False,
+                  mode: str = "train"):
+    B, S, _ = x.shape
+    q, k, v = _project_qkv(p, x, cfg)
+    q, k = _rotate(q, k, positions, cfg)
+    if mode == "prefill" and S * k.shape[1] > 4096 * 4096:
+        out = attn_lib.attention_flash(q, k, v, causal=True, window=cfg.sliding_window)
+    else:
+        out = attn_lib.attention(q, k, v, causal=True, window=cfg.sliding_window)
+    out = out.reshape(B, S, -1) @ p.wo
+    if return_kv:
+        return out, (k, v)
+    return out
+
+
+def transformer_block(p, x, cfg: ModelConfig, positions, *, return_kv=False,
+                      mode: str = "train"):
+    h = apply_norm(x, p.ln1, cfg.norm)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    res = attn_sublayer(p.attn, h, cfg, positions, return_kv=return_kv, mode=mode)
+    y, kv = res if return_kv else (res, None)
+    x = x + y
+    h = apply_norm(x, p.ln2, cfg.norm)
+    x = x + mlp(p.mlp, h, cfg.activation)
+    return (x, aux, kv) if return_kv else (x, aux)
+
+
+def backbone(params, x, cfg: ModelConfig, positions, *, remat: str = "none"):
+    """Full-sequence pass over all layers. x: (B,S,d) embeddings.  Each
+    layer runs under ``checkpoint_layer(..., remat)``."""
+
+    def body(carry, blk):
+        h, aux = carry
+        h, a = transformer_block(blk, h, cfg, positions)
+        return h, aux + a
+
+    body = checkpoint_layer(body, remat)
+    carry = (x, torch.zeros((), dtype=torch.float32, device=x.device))
+    for blk in params.blocks:
+        carry = body(carry, blk)
+    x, aux = carry
+    return apply_norm(x, params.final_norm, cfg.norm), aux
+
+
+def embed_inputs(params, batch, cfg: ModelConfig):
+    """Embed tokens, or pass through stub-frontend embeddings (audio/vlm)."""
+    if "embeds" in batch:
+        x = batch["embeds"].to(_dtype(cfg))
+    else:
+        x = embed_tokens(params.embedding, batch["tokens"])
+    B, S = x.shape[0], x.shape[1]
+    text = torch.arange(S, device=x.device)[None].expand(B, S)
+    if cfg.rope == "mrope":
+        positions = batch.get("positions_thw")
+        if positions is None:
+            positions = text_mrope_positions(text)
+    else:
+        positions = batch.get("positions")
+        if positions is None:
+            positions = text
+    return x, positions
+
+
+def logits_fn(params, x, cfg: ModelConfig):
+    w = params.embedding if cfg.tie_embeddings else params.lm_head
+    logits = unembed(x, w)
+    if cfg.padded_vocab != cfg.vocab_size:  # mask the padding columns
+        pad = torch.arange(cfg.padded_vocab, device=x.device) >= cfg.vocab_size
+        logits = logits.masked_fill(pad, -1e30)
+    return logits
+
+
+CE_CHUNK = 512  # seq positions per chunked-CE block (pure-FSDP path)
+
+
+def _chunked_ce(params, x, labels, cfg: ModelConfig):
+    """Sequence-chunked vocab loss: never materializes the full (B,S,V)
+    fp32 logits; each chunk's logits are recomputed in the backward pass
+    (non-reentrant checkpoint).  Used under pure-FSDP."""
+    nc = x.shape[1] // CE_CHUNK
+
+    def chunk_nll(xc, lc):
+        logits = logits_fn(params, xc, cfg).float()
+        lse = torch.logsumexp(logits, dim=-1)
+        tgt = logits.gather(-1, lc.long().clamp_min(0)[..., None])[..., 0]
+        mask = (lc != -1).float()
+        return ((lse - tgt) * mask).sum(), mask.sum()
+
+    tot = cnt = 0.0
+    for i in range(nc):
+        sl = slice(i * CE_CHUNK, (i + 1) * CE_CHUNK)
+        t, c = checkpoint(chunk_nll, x[:, sl], labels[:, sl], use_reentrant=False)
+        tot, cnt = tot + t, cnt + c
+    return tot / cnt.clamp_min(1.0)
+
+
+def loss_fn(params, batch, cfg: ModelConfig, *, remat: str = "full"):
+    """Next-token loss. batch: tokens (B,S) [or (B,S,K) audio; embeds for
+    vlm/audio stubs] + labels."""
+    x, positions = embed_inputs(params, batch, cfg)
+    x, _ = backbone(params, x, cfg, positions, remat=remat)
+    labels = batch["labels"]
+    S = x.shape[1]
+    if (get_sharding_mode() == "fsdp" and labels.ndim == 2
+            and S % CE_CHUNK == 0 and S > CE_CHUNK):
+        return _chunked_ce(params, x, labels, cfg)
+    return cross_entropy_loss(logits_fn(params, x, cfg), labels)
+
+
+# ---------------------------------------------------------------------------
+# Serving: prefill + decode with stacked caches
+# ---------------------------------------------------------------------------
+
+def cache_seq_len(cfg: ModelConfig, max_seq: int) -> int:
+    if cfg.sliding_window is not None:
+        return min(max_seq, cfg.sliding_window)
+    return max_seq
+
+
+def init_caches(cfg: ModelConfig, batch: int, max_seq: int, device=None) -> dict:
+    """Stacked (leading L) zero caches for decoding, on ``device`` (default
+    the card)."""
+    _check_family(cfg)
+    shape = (cfg.num_layers, batch, cache_seq_len(cfg, max_seq),
+             cfg.num_kv_heads, cfg.head_dim)
+    dev = resolve(device)
+    return {"k": torch.zeros(shape, dtype=_dtype(cfg), device=dev),
+            "v": torch.zeros(shape, dtype=_dtype(cfg), device=dev)}
+
+
+def _decode_attn(p, h, cfg: ModelConfig, k_cache, v_cache, cache_len: int, positions):
+    """One-token attention against a (possibly ring-buffered) cache,
+    k_cache/v_cache (B,Scache,Hkv,Dh), whose row at the new token's slot is
+    overwritten in place."""
+    B = h.shape[0]
+    q, k_new, v_new = _project_qkv(p, h, cfg)
+    q, k_new = _rotate(q, k_new, positions, cfg)
+    S_cache = k_cache.shape[1]
+    ring = cfg.sliding_window is not None and S_cache == cfg.sliding_window
+    slot = cache_len % S_cache if ring else min(cache_len, S_cache - 1)
+    k_cache[:, slot] = k_new[:, 0]
+    v_cache[:, slot] = v_new[:, 0]
+    n_valid = cache_len + 1
+    if ring:
+        valid = (torch.arange(S_cache, device=h.device)[None, :] < n_valid) | (n_valid >= S_cache)
+        num, den, m = attn_lib.decode_attention_partial(
+            q[:, 0], k_cache, v_cache, valid.expand(B, S_cache))
+        out = attn_lib.combine_decode_partials(num, den, m, None).to(h.dtype)
+    else:
+        out = attn_lib.decode_attention(q[:, 0], k_cache, v_cache, n_valid)
+    return out.reshape(B, 1, -1) @ p.wo
+
+
+def decode_block(p, h, cfg: ModelConfig, k_cache, v_cache, cache_len: int, positions):
+    """One layer, one token. h: (B,1,d)."""
+    x = h + _decode_attn(p.attn, apply_norm(h, p.ln1, cfg.norm), cfg,
+                         k_cache, v_cache, cache_len, positions)
+    return x + mlp(p.mlp, apply_norm(x, p.ln2, cfg.norm), cfg.activation)
+
+
+@torch.no_grad()
+def decode_step(params, batch, caches, cache_len, cfg: ModelConfig):
+    """One serve step: batch["tokens"]: (B,) [or (B,K)] -> logits + caches.
+
+    cache_len: tokens already in the cache (an int or a 0-d tensor).  The
+    new token's K/V row is written into ``caches`` in place, and the same
+    dict is returned.
+    """
+    cache_len = int(cache_len)
+    if cfg.family == "audio" and batch["tokens"].ndim == 2:
+        tokens = batch["tokens"][:, None, :]       # (B,1,K)
+    else:
+        tokens = batch["tokens"][:, None]          # (B,1)
+    if "embeds" in batch:
+        x = batch["embeds"].to(_dtype(cfg))        # (B,1,d) stub frontends
+    else:
+        x = embed_tokens(params.embedding, tokens)
+    B = x.shape[0]
+    positions = torch.full((B, 1), cache_len, dtype=torch.long, device=x.device)
+    if cfg.rope == "mrope":
+        positions = text_mrope_positions(positions)
+    for i, blk in enumerate(params.blocks):
+        x = decode_block(blk, x, cfg, caches["k"][i], caches["v"][i], cache_len, positions)
+    x = apply_norm(x, params.final_norm, cfg.norm)
+    return logits_fn(params, x, cfg)[:, 0], caches
+
+
+@torch.no_grad()
+def prefill(params, batch, cfg: ModelConfig):
+    """Full-sequence forward returning last-position logits + filled caches."""
+    x, positions = embed_inputs(params, batch, cfg)
+    S_cache = cache_seq_len(cfg, x.shape[1])
+    ks, vs = [], []
+    for blk in params.blocks:
+        x, _, (k, v) = transformer_block(blk, x, cfg, positions, return_kv=True,
+                                         mode="prefill")
+        ks.append(k[:, -S_cache:])
+        vs.append(v[:, -S_cache:])
+    caches = {"k": torch.stack(ks), "v": torch.stack(vs)}
+    del ks, vs
+    x = apply_norm(x, params.final_norm, cfg.norm)
+    return logits_fn(params, x[:, -1:], cfg)[:, 0], caches

@@ -38,22 +38,39 @@ def _both(rng, shape, dtype: str):
 # Configs
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("name", ["qwen2-7b", "qwen2-72b", "mixtral-8x22b"])
+@pytest.mark.parametrize("name", jconfigs.ARCH_NAMES)
 def test_config_copy_matches_jax(name):
-    mine, ref = tconfigs.get_config(name), jconfigs.get_config(name).model
+    """``get_config`` returns the whole ``ArchConfig`` (model, train and UM
+    policy), equal to the reference's, and ``.model.reduce()`` works."""
+    mine, ref = tconfigs.get_config(name), jconfigs.get_config(name)
+    assert type(mine).__name__ == "ArchConfig"
     assert dataclasses.asdict(mine) == dataclasses.asdict(ref)
-    assert (mine.num_heads, mine.num_kv_heads, mine.head_dim, mine.sliding_window,
-            mine.dtype) == (ref.num_heads, ref.num_kv_heads, ref.head_dim,
-                            ref.sliding_window, ref.dtype)
-    assert dataclasses.asdict(mine.reduce()) == dataclasses.asdict(ref.reduce())
-    assert mine.padded_vocab == ref.padded_vocab
+    assert mine.name == ref.name
+    m, r = mine.model, ref.model
+    assert (m.num_heads, m.num_kv_heads, m.head_dim, m.sliding_window,
+            m.dtype) == (r.num_heads, r.num_kv_heads, r.head_dim,
+                         r.sliding_window, r.dtype)
+    assert dataclasses.asdict(m.reduce()) == dataclasses.asdict(r.reduce())
+    assert m.padded_vocab == r.padded_vocab
+    assert m.total_params() == r.total_params()
+    assert m.active_params() == r.active_params()
+    for shape in jconfigs.SHAPES.values():
+        assert mine.supports_shape(tconfigs.get_shape(shape.name)) == \
+            ref.supports_shape(shape)
 
 
 def test_attention_geometry_of_the_served_configs():
+    assert tconfigs.ARCH_NAMES == jconfigs.ARCH_NAMES
     geo = {n: (c.num_heads, c.num_kv_heads, c.head_dim, c.sliding_window)
-           for n in tconfigs.ARCH_NAMES for c in [tconfigs.get_config(n)]}
-    assert geo == {"qwen2-7b": (28, 4, 128, None), "qwen2-72b": (64, 8, 128, None),
-                   "mixtral-8x22b": (48, 8, 128, 4096)}
+           for n in tconfigs.ARCH_NAMES for c in [tconfigs.get_config(n).model]}
+    assert geo == {"starcoder2-3b": (24, 2, 128, None),
+                   "nemotron-4-15b": (48, 8, 128, None),
+                   "qwen2-7b": (28, 4, 128, None), "qwen2-72b": (64, 8, 128, None),
+                   "rwkv6-3b": (0, 0, 0, None), "hymba-1.5b": (25, 5, 64, 1024),
+                   "grok-1-314b": (48, 8, 128, None),
+                   "mixtral-8x22b": (48, 8, 128, 4096),
+                   "musicgen-medium": (24, 24, 64, None),
+                   "qwen2-vl-2b": (12, 2, 128, None)}
 
 
 def test_shapes_match_jax():

@@ -65,6 +65,10 @@ def test_port_runs_with_jax_blocked():
         "out = fdtd3d.numeric(shape=(8, 16, 40), steps=1, device='cpu')\n"
         "assert out['out'].shape == (8, 16, 40)\n"
         "black_scholes.numeric(n=64, device='cpu')\n"
+        "import repro_torch.core, repro_torch.data, repro_torch.models\n"
+        "from repro_torch.launch.serve import serve\n"
+        "toks = serve('qwen2-7b', batch=2, prompt_len=4, gen=3, device='cpu')\n"
+        "assert toks.shape == (2, 3)\n"
         "loaded = [m for m in sys.modules if m == 'repro' or m.startswith('repro.')]\n"
         "assert not loaded, loaded\n"
         "print('ok')\n")
@@ -72,7 +76,7 @@ def test_port_runs_with_jax_blocked():
     proc = subprocess.run([sys.executable, "-c", code], env=env, cwd=REPO,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
-    assert proc.stdout.strip() == "ok"
+    assert proc.stdout.strip().splitlines()[-1] == "ok"
 
 
 @pytest.mark.parametrize("app", APPS, ids=lambda m: m.__name__.rsplit(".", 1)[-1])
@@ -83,6 +87,42 @@ def test_numeric_defaults_to_the_card(app):
         pytest.skip("a CUDA device is present; the default is taken")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         app.numeric()
+
+
+def _no_card_entry_points():
+    from repro_torch.configs import ShapeConfig, get_config
+    from repro_torch.core.placement import to_device_space
+    from repro_torch.core.prefetch import PrefetchIterator
+    from repro_torch.data import prefetched
+    from repro_torch.launch.serve import serve
+
+    cfg = get_config("qwen2-7b").model.reduce()
+    return {"serve": lambda: serve("qwen2-7b", batch=1, prompt_len=2, gen=1),
+            "prefetched": lambda: prefetched(cfg, ShapeConfig("t", 4, 1, "train")),
+            "PrefetchIterator": lambda: PrefetchIterator(iter([])),
+            "to_device_space": lambda: to_device_space(torch.ones(2))}
+
+
+@pytest.mark.parametrize("name", ["serve", "prefetched", "PrefetchIterator",
+                                  "to_device_space"])
+def test_movement_and_serve_default_to_the_card(name):
+    """With no device given, the slice's entry points take the card, and
+    raise without one instead of running on the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present; the default is taken")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        _no_card_entry_points()[name]()
+
+
+def test_no_memory_kinds_on_the_cpu():
+    from repro_torch.core.placement import backend_supports_memory_kinds
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    assert backend_supports_memory_kinds() is False
+    assert backend_supports_memory_kinds("cpu") is False
+    with pytest.raises(ValueError, match="meta"):
+        backend_supports_memory_kinds("meta")
 
 
 def test_resolve_takes_an_explicit_device():
