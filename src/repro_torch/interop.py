@@ -36,9 +36,13 @@ def params_from_jax(tree, cfg, device) -> "torch.nn.Module":
     port's ``Transformer`` on ``device``.
 
     ``tree`` holds NumPy or JAX arrays (bf16 included) or tensors from
-    ``to_torch``; the leading L dimension of ``tree["layers"]`` is
-    unstacked into the blocks.  Every leaf must find a parameter of the
-    same shape and dtype and every parameter a leaf, or it raises.
+    ``to_torch``.  Each array under ``tree["layers"]``, at any depth
+    (``layers/tm/ln_x/scale``), has a leading L dimension that is
+    unstacked into the blocks: a block's parameter
+    ``blocks.<i>.<a>.<b>`` is ``layers/<a>/<b>[i]``, so stacked experts
+    (L, E, d, f) give each block one (E, d, f) parameter.  Every leaf must
+    find a parameter of the same shape and dtype (fp32 leaves beside bf16
+    ones stay fp32) and every parameter a leaf, or it raises.
     """
     from repro_torch.models.transformer import Transformer
 
@@ -48,8 +52,8 @@ def params_from_jax(tree, cfg, device) -> "torch.nn.Module":
     want = {}
     for name, p in model.named_parameters():
         parts = name.split(".")
-        if parts[0] == "blocks":  # blocks.<i>.<sub>.<leaf> <- layers/<sub>/<leaf>[i]
-            want[("layers", parts[2], parts[3], int(parts[1]))] = p
+        if parts[0] == "blocks":  # blocks.<i>.<path> <- layers/<path>[i]
+            want[("layers", *parts[2:], int(parts[1]))] = p
         else:
             want[tuple(parts)] = p
     have = {}
@@ -67,8 +71,8 @@ def params_from_jax(tree, cfg, device) -> "torch.nn.Module":
     walk(src, ())
     if set(have) != set(want):
         raise ValueError(f"params_from_jax: the trees differ: only in JAX's "
-                         f"{sorted(set(have) - set(want))}, only in the port's "
-                         f"{sorted(set(want) - set(have))}")
+                         f"{sorted(set(have) - set(want), key=str)}, only in the port's "
+                         f"{sorted(set(want) - set(have), key=str)}")
     with torch.no_grad():
         for key, p in want.items():
             a = have[key]

@@ -3,9 +3,9 @@
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-7b \\
         --batch 4 --prompt-len 32 --gen 16 [--device cpu]
 
-The counterpart of ``repro.launch.serve``: prefill -> stacked KV caches ->
-decode loop (ring-buffer caches for SWA archs), on the card unless the
-caller asks for the CPU.  Random weights come from a seeded
+The counterpart of ``repro.launch.serve``, for all ten configs: prefill ->
+stacked caches -> decode loop (ring-buffer caches for SWA archs; recurrent
+state for rwkv and hymba), on the card unless the caller asks for the CPU.  Random weights come from a seeded
 ``torch.Generator`` (they cannot match ``jax.random``'s; ``params=`` takes
 weights carried across from JAX), and so do the vlm family's stub prompt
 embeddings.
@@ -30,6 +30,13 @@ def _sync(dev: torch.device) -> None:
         torch.cuda.synchronize(dev)
 
 
+def _same_device(a: torch.device, b: torch.device) -> bool:
+    """Whether a and b are one device; ``cuda`` is the current card."""
+    def index(d):
+        return torch.cuda.current_device() if d.type == "cuda" and d.index is None else d.index
+    return a.type == b.type and index(a) == index(b)
+
+
 def _prompt_batch(cfg, prompts, batch: int, prompt_len: int, dev) -> dict:
     """The first batch of ``prompts`` (e.g. ``data.pipeline.prefetched``):
     its embeddings (and M-RoPE positions) for the vlm family, else its
@@ -44,6 +51,24 @@ def _prompt_batch(cfg, prompts, batch: int, prompt_len: int, dev) -> dict:
     return out
 
 
+def rehome_caches(cfg, caches_prompt: dict, batch: int, max_seq: int, device) -> dict:
+    """The caches of a prefill, made ready to decode up to ``max_seq``
+    positions, as the reference's serve does: K/V copied into zero caches
+    of ``max_seq`` (or window) positions, the prompt's last ones first; the
+    recurrent states (rwkv's shifts and WKV state, hybrid's Mamba conv and
+    SSM states) as the prefill left them."""
+    if cfg.family == "ssm":
+        return caches_prompt  # recurrent state is position-independent
+    caches = init_caches(cfg, batch, max_seq, device)
+    s_cache = min(caches["k"].shape[2], caches_prompt["k"].shape[2])
+    for key in ("k", "v"):
+        caches[key][:, :, :s_cache] = caches_prompt[key][:, :, -s_cache:]
+    for key in ("conv", "ssm"):
+        if key in caches:
+            caches[key] = caches_prompt[key]
+    return caches
+
+
 def serve(arch_name: str, *, reduced: bool = True, batch: int = 4,
           prompt_len: int = 32, gen: int = 16, seed: int = 0, device=None,
           params=None, prompts=None, teacher=None, record: dict | None = None):
@@ -52,8 +77,9 @@ def serve(arch_name: str, *, reduced: bool = True, batch: int = 4,
     as NumPy.
 
     ``params``: a ``Transformer`` on the device (default: seeded random
-    weights).  ``prompts``: an iterable of batches whose first one holds
-    the prompts (default: the reference's seeded NumPy tokens).
+    weights), which may have fewer blocks than the config has layers.
+    ``prompts``: an iterable of batches whose first one holds the prompts
+    (default: the reference's seeded NumPy tokens).
     ``teacher``: tokens (batch, gen, ...) fed to the decode steps in place
     of the generated ones (teacher forcing).  ``record``: a dict that gets
     ``prefill_ms``, ``decode_ms_per_token``, ``tokens_per_s`` (host clock,
@@ -68,9 +94,11 @@ def serve(arch_name: str, *, reduced: bool = True, batch: int = 4,
     g = torch.Generator(device=dev).manual_seed(seed)
     if params is None:
         params = init_params(cfg, g, dev)
-    elif next(params.parameters()).device != dev:
+    elif not _same_device(next(params.parameters()).device, dev):
         raise ValueError(f"serve: params are on {next(params.parameters()).device}, "
                          f"the run on {dev}")
+    else:  # weights cut in depth serve at their depth
+        cfg = dataclasses.replace(cfg, num_layers=len(params.blocks))
     max_seq = prompt_len + gen
 
     if prompts is not None:
@@ -89,10 +117,7 @@ def serve(arch_name: str, *, reduced: bool = True, batch: int = 4,
     _sync(dev)
     t0 = time.perf_counter()
     logits, caches_prompt = tf.prefill(params, pre_batch, cfg)
-    caches = init_caches(cfg, batch, max_seq, dev)
-    s_cache = min(caches["k"].shape[2], caches_prompt["k"].shape[2])
-    for key in ("k", "v"):
-        caches[key][:, :, :s_cache] = caches_prompt[key][:, :, -s_cache:]
+    caches = rehome_caches(cfg, caches_prompt, batch, max_seq, dev)
     del caches_prompt
     _sync(dev)
     prefill_s = time.perf_counter() - t0

@@ -1,7 +1,7 @@
 """Step builders for serving: the counterparts of
 ``repro.launch.step.build_prefill_step`` and ``build_serve_step`` (greedy
-argmax).  The train step, with the residency plan's optimizer placement,
-comes with the port's optimizer slice."""
+argmax), for every family.  The train step, with the residency plan's
+optimizer placement, comes with the port's optimizer slice."""
 from __future__ import annotations
 
 from repro_torch.configs.base import ArchConfig

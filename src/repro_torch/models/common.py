@@ -59,6 +59,17 @@ def layernorm(x, scale, bias, eps: float = 1e-5):
     return y.to(x.dtype) * scale + bias
 
 
+class Norm(torch.nn.Module):
+    """rmsnorm (``scale``) or layernorm (``scale``, ``bias``): ones and
+    zeros at init, as in the reference."""
+
+    def __init__(self, d: int, kind: str, dtype, device):
+        super().__init__()
+        self.scale = torch.nn.Parameter(torch.ones(d, dtype=dtype, device=device))
+        if kind != "rmsnorm":
+            self.bias = torch.nn.Parameter(torch.zeros(d, dtype=dtype, device=device))
+
+
 def apply_norm(x, params, kind: str):
     """``params`` holds ``scale`` (and ``bias`` for layernorm), as
     attributes (a ``Norm`` module) or items (a dict)."""
@@ -156,6 +167,19 @@ def _normal(shape, std: float, generator, dtype, device) -> torch.Tensor:
     """N(0, std^2) drawn in ``dtype`` and scaled in ``dtype``, as the
     reference's ``jax.random.normal(key, shape, dtype) * std``."""
     return torch.randn(shape, generator=generator, dtype=dtype, device=device).mul_(std)
+
+
+def _weight(shape, std, generator, dtype, device) -> torch.nn.Parameter:
+    """N(0, std^2) from ``generator``, or uninitialised with none (to be
+    filled by a copy)."""
+    if generator is None:
+        return torch.nn.Parameter(torch.empty(shape, dtype=dtype, device=device))
+    return torch.nn.Parameter(_normal(shape, std, generator, dtype, device))
+
+
+def _const(shape, value, dtype, device) -> torch.nn.Parameter:
+    """A parameter filled with ``value``, as the reference inits it."""
+    return torch.nn.Parameter(torch.full(shape, value, dtype=dtype, device=device))
 
 
 def embed_tokens(emb, tokens):

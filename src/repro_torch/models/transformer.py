@@ -1,25 +1,29 @@
-"""Decoder model for the dense, vlm and audio families.
+"""Composable decoder model covering all ten configs.
 
-The counterpart of ``repro.models.transformer``.  The model is a
-``Transformer`` module (an embedding, a list of blocks with ``ln1``,
-``attn``, ``ln2`` and ``mlp``, a final norm and an optional head) whose
-parameters keep the reference's names and layouts (``wq`` is (d, Hq*Dh),
-used as ``x @ w``), so that carrying weights across
-(``repro_torch.interop.params_from_jax``) is a copy, not a transpose.  The
-reference's ``lax.scan`` over stacked layers becomes a loop over the
-blocks.  Entry points, as in the reference:
+The counterpart of ``repro.models.transformer``.  Families:
 
-  loss_fn(params, batch, cfg)                        training loss
-  prefill(params, batch, cfg)                        logits + KV caches
+  dense / moe / audio / vlm -> ``Block`` (GQA attention + MLP or MoE)
+  ssm                       -> ``RWKVBlock`` (``repro_torch.models.rwkv``)
+  hybrid                    -> ``Block`` with parallel attention + Mamba heads
+
+The model is a ``Transformer`` module (an embedding, a list of blocks, a
+final norm and an optional head) whose parameters keep the reference's
+names, nesting, layouts and dtypes (``wq`` is (d, Hq*Dh), used as
+``x @ w``; a block's experts are one (E, d, f) tensor), so that carrying
+weights across (``repro_torch.interop.params_from_jax``) is a copy, not a
+transpose.  The reference's ``lax.scan`` over stacked layers becomes a
+loop over the blocks.  Entry points, as in the reference:
+
+  loss_fn(params, batch, cfg)                        training loss (+ MoE aux)
+  prefill(params, batch, cfg)                        logits + caches
   decode_step(params, batch, caches, cache_len, cfg) one-token serve step
 
-Caches are stacked, (L, B, S, Hkv, Dh).  Sliding-window archs use
-ring-buffer KV caches of window size.  One deliberate difference:
-``decode_step`` writes the new K/V row into the cache tensors it is given
-and returns them, where the reference returns new caches.
-
-The moe, ssm and hybrid families raise ``NotImplementedError``: their
-blocks come with a later slice of the port (ROADMAP.md §1 item 1).
+Caches are stacked with a leading L: K/V (L, B, S, Hkv, Dh), ring buffers
+of window size for sliding-window archs; rwkv's token shifts and WKV
+state; hybrid's K/V plus the Mamba conv and SSM states.  One deliberate
+difference: ``decode_step`` writes the new token's K/V row and the new
+recurrent states into the cache tensors it is given and returns them,
+where the reference returns new caches.
 """
 from __future__ import annotations
 
@@ -31,8 +35,12 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core.streaming import checkpoint_layer
 from repro_torch.device import resolve
 from repro_torch.models import attention as attn_lib
+from repro_torch.models import moe as moe_lib
+from repro_torch.models import rwkv as rwkv_lib
+from repro_torch.models import ssm as ssm_lib
 from repro_torch.models.common import (
-    _normal,
+    Norm,
+    _weight,
     apply_mrope,
     apply_norm,
     apply_rope,
@@ -44,43 +52,14 @@ from repro_torch.models.common import (
 )
 from repro_torch.models.mlp import MLP, mlp
 
-FAMILIES = ("dense", "vlm", "audio")
-
-
-def _check_family(cfg: ModelConfig) -> None:
-    if cfg.family not in FAMILIES:
-        raise NotImplementedError(
-            f"{cfg.name}: the {cfg.family} family is not ported yet; its blocks "
-            "(MoE, SSM/RWKV, hybrid) come with ROADMAP.md §1 item 1 (models, "
-            "after the dense family)")
-
 
 def _dtype(cfg: ModelConfig) -> torch.dtype:
     return torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
 
 
-def _weight(shape, std, generator, dtype, device) -> nn.Parameter:
-    """N(0, std^2) from ``generator``, or uninitialised with none (to be
-    filled by a copy)."""
-    if generator is None:
-        return nn.Parameter(torch.empty(shape, dtype=dtype, device=device))
-    return nn.Parameter(_normal(shape, std, generator, dtype, device))
-
-
 # ---------------------------------------------------------------------------
 # Modules
 # ---------------------------------------------------------------------------
-
-class Norm(nn.Module):
-    """rmsnorm (``scale``) or layernorm (``scale``, ``bias``): ones and
-    zeros at init, as in the reference."""
-
-    def __init__(self, d: int, kind: str, dtype, device):
-        super().__init__()
-        self.scale = nn.Parameter(torch.ones(d, dtype=dtype, device=device))
-        if kind != "rmsnorm":
-            self.bias = nn.Parameter(torch.zeros(d, dtype=dtype, device=device))
-
 
 class Attention(nn.Module):
     def __init__(self, cfg: ModelConfig, dtype, device, generator=None):
@@ -98,12 +77,26 @@ class Attention(nn.Module):
 
 
 class Block(nn.Module):
+    """``ln1``, ``attn``, ``ln2`` and ``mlp`` or ``moe``; for the hybrid
+    family also ``mamba`` (d_inner = Hq*Dh), ``attn_out_norm`` and
+    ``ssm_out_norm``."""
+
     def __init__(self, cfg: ModelConfig, dtype, device, generator=None):
         super().__init__()
         self.ln1 = Norm(cfg.d_model, cfg.norm, dtype, device)
         self.attn = Attention(cfg, dtype, device, generator)
         self.ln2 = Norm(cfg.d_model, cfg.norm, dtype, device)
-        self.mlp = MLP(cfg.d_model, cfg.d_ff, cfg.activation, dtype, device, generator)
+        if cfg.num_experts:
+            self.moe = moe_lib.MoE(cfg.d_model, cfg.d_ff, cfg.num_experts, cfg.activation,
+                                   dtype, device, generator)
+        else:
+            self.mlp = MLP(cfg.d_model, cfg.d_ff, cfg.activation, dtype, device, generator)
+        if cfg.family == "hybrid":
+            d_inner = cfg.num_heads * cfg.head_dim
+            self.mamba = ssm_lib.Mamba(cfg.d_model, d_inner, cfg.ssm_state, dtype, device,
+                                       generator)
+            self.attn_out_norm = Norm(cfg.d_model, "rmsnorm", dtype, device)
+            self.ssm_out_norm = Norm(cfg.d_model, "rmsnorm", dtype, device)
 
 
 class Transformer(nn.Module):
@@ -114,14 +107,14 @@ class Transformer(nn.Module):
     def __init__(self, cfg: ModelConfig, device=None,
                  generator: torch.Generator | None = None):
         super().__init__()
-        _check_family(cfg)
         self.cfg = cfg
         dev = resolve(device)
         dtype = _dtype(cfg)
         shape = ((cfg.num_codebooks, cfg.padded_vocab, cfg.d_model)
                  if cfg.num_codebooks > 1 else (cfg.padded_vocab, cfg.d_model))
         self.embedding = _weight(shape, 0.02, generator, dtype, dev)
-        self.blocks = nn.ModuleList(Block(cfg, dtype, dev, generator)
+        block = rwkv_lib.RWKVBlock if cfg.family == "ssm" else Block
+        self.blocks = nn.ModuleList(block(cfg, dtype, dev, generator)
                                     for _ in range(cfg.num_layers))
         self.final_norm = Norm(cfg.d_model, cfg.norm, dtype, dev)
         self.lm_head = (None if cfg.tie_embeddings
@@ -181,26 +174,48 @@ def attn_sublayer(p, x, cfg: ModelConfig, positions, *, return_kv=False,
     return out
 
 
+def _ffn(p, h, cfg: ModelConfig, **moe_kw):
+    """MLP, or MoE for the moe family: (y, aux); an MLP's aux is 0.0."""
+    if cfg.num_experts:
+        return moe_lib.moe(p.moe, h, top_k=cfg.top_k, activation=cfg.activation, **moe_kw)
+    return mlp(p.mlp, h, cfg.activation), 0.0
+
+
 def transformer_block(p, x, cfg: ModelConfig, positions, *, return_kv=False,
                       mode: str = "train"):
+    """One attention-family layer: (x, aux), or (x, aux, cache) with
+    ``return_kv`` (cache: k, v, and for hybrid the Mamba conv and ssm
+    states).  Hybrid mixes 0.5 (rmsnorm(attention) + rmsnorm(Mamba))."""
     h = apply_norm(x, p.ln1, cfg.norm)
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     res = attn_sublayer(p.attn, h, cfg, positions, return_kv=return_kv, mode=mode)
     y, kv = res if return_kv else (res, None)
+    cache = {"k": kv[0], "v": kv[1]} if return_kv else None
+    if cfg.family == "hybrid":
+        m_out, (conv_s, ssm_s) = ssm_lib.mamba(p.mamba, h)
+        y = 0.5 * (apply_norm(y, p.attn_out_norm, "rmsnorm")
+                   + apply_norm(m_out, p.ssm_out_norm, "rmsnorm"))
+        if return_kv:
+            cache.update(conv=conv_s, ssm=ssm_s)
     x = x + y
-    h = apply_norm(x, p.ln2, cfg.norm)
-    x = x + mlp(p.mlp, h, cfg.activation)
-    return (x, aux, kv) if return_kv else (x, aux)
+    y, aux = _ffn(p, apply_norm(x, p.ln2, cfg.norm), cfg)
+    x = x + y
+    return (x, aux, cache) if return_kv else (x, aux)
 
 
 def backbone(params, x, cfg: ModelConfig, positions, *, remat: str = "none"):
     """Full-sequence pass over all layers. x: (B,S,d) embeddings.  Each
-    layer runs under ``checkpoint_layer(..., remat)``."""
+    layer runs under ``checkpoint_layer(..., remat)``.  Returns the normed
+    hidden states and the MoE aux loss summed over the layers."""
 
-    def body(carry, blk):
-        h, aux = carry
-        h, a = transformer_block(blk, h, cfg, positions)
-        return h, aux + a
+    if cfg.family == "ssm":
+        def body(carry, blk):
+            h, aux = carry
+            return rwkv_lib.rwkv_block(blk, h, cfg)[0], aux
+    else:
+        def body(carry, blk):
+            h, aux = carry
+            h, a = transformer_block(blk, h, cfg, positions)
+            return h, aux + a
 
     body = checkpoint_layer(body, remat)
     carry = (x, torch.zeros((), dtype=torch.float32, device=x.device))
@@ -264,15 +279,19 @@ def _chunked_ce(params, x, labels, cfg: ModelConfig):
 
 def loss_fn(params, batch, cfg: ModelConfig, *, remat: str = "full"):
     """Next-token loss. batch: tokens (B,S) [or (B,S,K) audio; embeds for
-    vlm/audio stubs] + labels."""
+    vlm/audio stubs] + labels; the MoE aux loss folded in."""
     x, positions = embed_inputs(params, batch, cfg)
-    x, _ = backbone(params, x, cfg, positions, remat=remat)
+    x, aux = backbone(params, x, cfg, positions, remat=remat)
     labels = batch["labels"]
     S = x.shape[1]
     if (get_sharding_mode() == "fsdp" and labels.ndim == 2
             and S % CE_CHUNK == 0 and S > CE_CHUNK):
-        return _chunked_ce(params, x, labels, cfg)
-    return cross_entropy_loss(logits_fn(params, x, cfg), labels)
+        loss = _chunked_ce(params, x, labels, cfg)
+    else:
+        loss = cross_entropy_loss(logits_fn(params, x, cfg), labels)
+    if cfg.num_experts:
+        loss = loss + 0.01 * aux / cfg.num_layers
+    return loss
 
 
 # ---------------------------------------------------------------------------
@@ -288,12 +307,23 @@ def cache_seq_len(cfg: ModelConfig, max_seq: int) -> int:
 def init_caches(cfg: ModelConfig, batch: int, max_seq: int, device=None) -> dict:
     """Stacked (leading L) zero caches for decoding, on ``device`` (default
     the card)."""
-    _check_family(cfg)
-    shape = (cfg.num_layers, batch, cache_seq_len(cfg, max_seq),
-             cfg.num_kv_heads, cfg.head_dim)
     dev = resolve(device)
-    return {"k": torch.zeros(shape, dtype=_dtype(cfg), device=dev),
-            "v": torch.zeros(shape, dtype=_dtype(cfg), device=dev)}
+    dtype, L = _dtype(cfg), cfg.num_layers
+
+    def zeros(*shape, dtype=dtype):
+        return torch.zeros((L, batch) + shape, dtype=dtype, device=dev)
+
+    if cfg.family == "ssm":
+        n, h = rwkv_lib.head_size(cfg), rwkv_lib.num_wkv_heads(cfg)
+        return {"tm_shift": zeros(cfg.d_model), "cm_shift": zeros(cfg.d_model),
+                "wkv": zeros(h, n, n, dtype=torch.float32)}
+    kv = (cache_seq_len(cfg, max_seq), cfg.num_kv_heads, cfg.head_dim)
+    caches = {"k": zeros(*kv), "v": zeros(*kv)}
+    if cfg.family == "hybrid":
+        d_inner = cfg.num_heads * cfg.head_dim
+        caches["conv"] = zeros(ssm_lib.CONV_K - 1, d_inner)
+        caches["ssm"] = zeros(d_inner, cfg.ssm_state, dtype=torch.float32)
+    return caches
 
 
 def _decode_attn(p, h, cfg: ModelConfig, k_cache, v_cache, cache_len: int, positions):
@@ -319,11 +349,22 @@ def _decode_attn(p, h, cfg: ModelConfig, k_cache, v_cache, cache_len: int, posit
     return out.reshape(B, 1, -1) @ p.wo
 
 
-def decode_block(p, h, cfg: ModelConfig, k_cache, v_cache, cache_len: int, positions):
-    """One layer, one token. h: (B,1,d)."""
-    x = h + _decode_attn(p.attn, apply_norm(h, p.ln1, cfg.norm), cfg,
-                         k_cache, v_cache, cache_len, positions)
-    return x + mlp(p.mlp, apply_norm(x, p.ln2, cfg.norm), cfg.activation)
+def decode_block(p, h, cfg: ModelConfig, cache: dict, cache_len: int, positions):
+    """One layer, one token. h: (B,1,d); ``cache`` holds this layer's
+    slices of the stacked caches, which are written in place."""
+    hn = apply_norm(h, p.ln1, cfg.norm)
+    y = _decode_attn(p.attn, hn, cfg, cache["k"], cache["v"], cache_len, positions)
+    if cfg.family == "hybrid":
+        m_out, (conv_s, ssm_s) = ssm_lib.mamba(p.mamba, hn, state=(cache["conv"], cache["ssm"]))
+        y = 0.5 * (apply_norm(y, p.attn_out_norm, "rmsnorm")
+                   + apply_norm(m_out, p.ssm_out_norm, "rmsnorm"))
+        cache["conv"].copy_(conv_s)
+        cache["ssm"].copy_(ssm_s)
+    x = h + y
+    # decode's MoE: capacity factor 2.0 over a group of the whole batch
+    y, _ = _ffn(p, apply_norm(x, p.ln2, cfg.norm), cfg, capacity_factor=2.0,
+                group_size=h.shape[0])
+    return x + y
 
 
 @torch.no_grad()
@@ -331,8 +372,8 @@ def decode_step(params, batch, caches, cache_len, cfg: ModelConfig):
     """One serve step: batch["tokens"]: (B,) [or (B,K)] -> logits + caches.
 
     cache_len: tokens already in the cache (an int or a 0-d tensor).  The
-    new token's K/V row is written into ``caches`` in place, and the same
-    dict is returned.
+    new token's K/V row and the new recurrent states are written into
+    ``caches`` in place, and the same dict is returned.
     """
     cache_len = int(cache_len)
     if cfg.family == "audio" and batch["tokens"].ndim == 2:
@@ -348,23 +389,36 @@ def decode_step(params, batch, caches, cache_len, cfg: ModelConfig):
     if cfg.rope == "mrope":
         positions = text_mrope_positions(positions)
     for i, blk in enumerate(params.blocks):
-        x = decode_block(blk, x, cfg, caches["k"][i], caches["v"][i], cache_len, positions)
+        cache = {name: c[i] for name, c in caches.items()}
+        if cfg.family == "ssm":
+            state = (cache["tm_shift"], cache["cm_shift"], cache["wkv"])
+            x, new = rwkv_lib.rwkv_block(blk, x, cfg, state=state)
+            for c, n in zip(state, new):
+                c.copy_(n)
+        else:
+            x = decode_block(blk, x, cfg, cache, cache_len, positions)
     x = apply_norm(x, params.final_norm, cfg.norm)
     return logits_fn(params, x, cfg)[:, 0], caches
 
 
 @torch.no_grad()
 def prefill(params, batch, cfg: ModelConfig):
-    """Full-sequence forward returning last-position logits + filled caches."""
+    """Full-sequence forward returning last-position logits + filled caches:
+    the K/V of the last window (or all) positions; for ssm the token shifts
+    and WKV state after the prompt; for hybrid also the Mamba states."""
     x, positions = embed_inputs(params, batch, cfg)
     S_cache = cache_seq_len(cfg, x.shape[1])
-    ks, vs = [], []
+    per_layer = []
     for blk in params.blocks:
-        x, _, (k, v) = transformer_block(blk, x, cfg, positions, return_kv=True,
-                                         mode="prefill")
-        ks.append(k[:, -S_cache:])
-        vs.append(v[:, -S_cache:])
-    caches = {"k": torch.stack(ks), "v": torch.stack(vs)}
-    del ks, vs
+        if cfg.family == "ssm":
+            x, (tm_s, cm_s, wkv_s) = rwkv_lib.rwkv_block(blk, x, cfg)
+            cache = {"tm_shift": tm_s, "cm_shift": cm_s, "wkv": wkv_s}
+        else:
+            x, _, cache = transformer_block(blk, x, cfg, positions, return_kv=True,
+                                            mode="prefill")
+            cache["k"], cache["v"] = cache["k"][:, -S_cache:], cache["v"][:, -S_cache:]
+        per_layer.append(cache)
+    caches = {name: torch.stack([c[name] for c in per_layer]) for name in per_layer[0]}
+    del per_layer
     x = apply_norm(x, params.final_norm, cfg.norm)
     return logits_fn(params, x[:, -1:], cfg)[:, 0], caches

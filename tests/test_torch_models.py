@@ -1,9 +1,10 @@
 """The port's model code (``repro_torch.models``: common, mlp, the FSDP
-query-chunk branch of attention and the dense / vlm / audio transformer)
+query-chunk branch of attention and the transformer of all ten configs)
 against the JAX package on the same inputs: seeded NumPy data, and the
 reference's parameter tree carried across with ``params_from_jax`` after
-seeded noise is added to the biases and norm scales (which the reference
-inits to zeros and ones, which would hide their paths).
+seeded noise is added to the biases, norm scales, token-shift mixes and
+the SSM constants (which the reference inits to constants, which would
+hide their paths).
 
 Tolerances: the building blocks at 1e-5, the JAX tests' own
 (tests/test_attention_and_data.py); fp32 logits and losses of the reduced
@@ -35,12 +36,17 @@ from repro.models import transformer as jt  # noqa: E402
 from repro_torch import configs as tconfigs  # noqa: E402
 from repro_torch.core import streaming  # noqa: E402
 from repro_torch.interop import params_from_jax, to_torch  # noqa: E402
+from repro_torch.launch.serve import rehome_caches  # noqa: E402
 from repro_torch.models import attention as ta  # noqa: E402
 from repro_torch.models import common as tc  # noqa: E402
 from repro_torch.models import mlp as tmlp  # noqa: E402
 from repro_torch.models import transformer as tt  # noqa: E402
 
-ARCHS = ("qwen2-7b", "starcoder2-3b", "nemotron-4-15b", "qwen2-vl-2b", "musicgen-medium")
+ARCHS = ("qwen2-7b", "qwen2-72b", "starcoder2-3b", "nemotron-4-15b", "qwen2-vl-2b",
+         "musicgen-medium", "mixtral-8x22b", "grok-1-314b", "rwkv6-3b", "hymba-1.5b")
+# leaves the reference inits to constants: noise makes each path show
+NOISY = ("bq", "bk", "bv", "scale", "bias", "mu_r", "mu_k", "mu_v", "mu_g", "mu_w",
+         "w0", "conv_b", "dt_bias", "A_log", "D")
 ATOL = 1e-5
 LOGIT_TOL = 1e-4
 GRAD_ATOL, GRAD_RTOL = 1e-5, 1e-4
@@ -71,8 +77,8 @@ _PARAMS = {}
 
 
 def _params(cfg, seed=0):
-    """The reference's params for ``cfg`` with N(0, 0.1) noise on every bias
-    and norm scale, as a JAX tree and as the port's module."""
+    """The reference's params for ``cfg`` with N(0, 0.1) noise on every leaf
+    named in ``NOISY``, as a JAX tree and as the port's module."""
     key = (cfg, seed)
     if key not in _PARAMS:
         tree = jax.jit(lambda k: jt.init_params(k, cfg))(jax.random.key(seed))
@@ -80,7 +86,7 @@ def _params(cfg, seed=0):
 
         def noisy(path, leaf):
             name = path[-1].key
-            if name in ("bq", "bk", "bv", "scale", "bias"):
+            if name in NOISY:
                 return leaf + jnp.asarray(rng.normal(0, 0.1, leaf.shape), leaf.dtype)
             return leaf
 
@@ -132,17 +138,29 @@ def _tb(batch):
     return {k: torch.from_numpy(np.array(v)) for k, v in batch.items()}
 
 
-def _port_grads(model) -> dict:
-    """The port's gradients in the reference's tree layout (layers stacked)."""
-    out = {"embedding": model.embedding.grad, "final_norm": {
-        n: p.grad for n, p in model.final_norm.named_parameters()}, "layers": {}}
-    if model.lm_head is not None:
-        out["lm_head"] = model.lm_head.grad
-    for sub in ("ln1", "attn", "ln2", "mlp"):
-        names = [n for n, _ in getattr(model.blocks[0], sub).named_parameters()]
-        out["layers"][sub] = {n: torch.stack([getattr(getattr(b, sub), n).grad
-                                              for b in model.blocks]) for n in names}
+def _port_tree(model, leaf) -> dict:
+    """``leaf(parameter)`` of each of the port's parameters, in the
+    reference's tree layout (the blocks' stacked along a leading L)."""
+    out = {}
+    for name, p in model.named_parameters():
+        parts = name.split(".")
+        if parts[0] == "blocks":
+            if parts[1] != "0":
+                continue
+            inner = ".".join(parts[2:])
+            parts = ["layers", *parts[2:]]
+            value = torch.stack([leaf(b.get_parameter(inner)) for b in model.blocks])
+        else:
+            value = leaf(p)
+        node = out
+        for part in parts[:-1]:
+            node = node.setdefault(part, {})
+        node[parts[-1]] = value
     return out
+
+
+def _port_grads(model) -> dict:
+    return _port_tree(model, lambda p: p.grad)
 
 
 def _assert_tree_close(got, want, atol, rtol):
@@ -261,13 +279,17 @@ def test_sharding_mode_state():
 def test_params_from_jax_is_a_copy(arch):
     cfg = _cfg(arch)
     tree, model = _params(cfg)
-    assert model.blocks[0].attn.wq.shape == (cfg.d_model, cfg.num_heads * cfg.head_dim)
-    np.testing.assert_array_equal(model.blocks[1].mlp.w_down.detach().numpy(),
-                                  np.asarray(tree["layers"]["mlp"]["w_down"][1]))
+    if cfg.family != "ssm":
+        assert model.blocks[0].attn.wq.shape == (cfg.d_model, cfg.num_heads * cfg.head_dim)
+    _assert_tree_close(_port_tree(model, torch.Tensor.detach), tree, 0, 0)
     n = sum(p.numel() for p in model.parameters())
     assert n == sum(x.size for x in jax.tree.leaves(tree))
     with pytest.raises(ValueError, match="trees differ"):
         params_from_jax({**tree, "extra": np.zeros(3)}, cfg, "cpu")
+    layers = dict(tree["layers"])
+    layers.pop(sorted(layers)[0])
+    with pytest.raises(ValueError, match="trees differ"):  # a missing leaf
+        params_from_jax({**tree, "layers": layers}, cfg, "cpu")
 
 
 def test_params_from_jax_carries_bf16_bit_for_bit():
@@ -280,6 +302,29 @@ def test_params_from_jax_carries_bf16_bit_for_bit():
                                   np.asarray(tree["layers"]["attn"]["wq"][1]).view(np.int16))
     with pytest.raises(ValueError, match="float32"):  # a tree of another dtype
         params_from_jax(tree, dataclasses.replace(cfg, dtype="float32"), "cpu")
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_params_from_jax_keeps_every_leaf_dtype_and_bits(arch):
+    """Every leaf of a bf16 model arrives with JAX's dtype and bits: bf16
+    leaves bit for bit, and the fp32 leaves (router, SSM and decay
+    parameters) as fp32."""
+    cfg = dataclasses.replace(_cfg(arch), dtype="bfloat16")
+    tree = jax.jit(lambda k: jt.init_params(k, cfg))(jax.random.key(3))
+    got = _port_tree(params_from_jax(tree, cfg, "cpu"), torch.Tensor.detach)
+    dtypes = set()
+    for path, want in jax.tree_util.tree_leaves_with_path(tree):
+        g = got
+        for k in path:
+            g = g[k.key]
+        want = np.asarray(want)
+        dtypes.add(want.dtype.name)
+        assert str(g.dtype) == f"torch.{want.dtype.name}", jax.tree_util.keystr(path)
+        bits = {2: (torch.int16, np.int16), 4: (torch.int32, np.int32)}[want.dtype.itemsize]
+        np.testing.assert_array_equal(g.view(bits[0]).numpy(), want.view(bits[1]),
+                                      err_msg=jax.tree_util.keystr(path))
+    assert "bfloat16" in dtypes
+    assert ("float32" in dtypes) == (cfg.family in ("moe", "ssm", "hybrid"))
 
 
 @pytest.mark.parametrize("arch", ARCHS)
@@ -303,8 +348,34 @@ def test_backbone_logits_loss_and_grads_match_jax(arch):
     model.zero_grad()
 
 
+def _jax_rehome(cfg, cp, B, max_seq):
+    """The reference serve's caches for decoding after a prefill's ``cp``
+    (src/repro/launch/serve.py)."""
+    if cfg.family == "ssm":
+        return cp
+    caches = jt.init_caches(cfg, B, max_seq)
+    s_cache = min(caches["k"].shape[2], cp["k"].shape[2])
+    for name in ("k", "v"):
+        caches[name] = jax.lax.dynamic_update_slice_in_dim(
+            caches[name], cp[name][:, :, -s_cache:], 0, axis=2)
+    for name in ("conv", "ssm"):
+        if name in caches:
+            caches[name] = cp[name]
+    return caches
+
+
+def _close_caches(got, want, atol):
+    assert sorted(got) == sorted(want)
+    for name in want:
+        assert got[name].dtype == to_torch(want[name], "cpu").dtype, name
+        np.testing.assert_allclose(_np(got[name]), _np(want[name]), atol=atol, err_msg=name)
+
+
 @pytest.mark.parametrize("arch", ARCHS)
 def test_prefill_and_decode_match_jax(arch):
+    """Logits and every cache tensor (K/V; rwkv's shifts and WKV state;
+    hybrid's K/V and Mamba states) after a prefill and after each
+    teacher-forced decode step."""
     cfg = _cfg(arch)
     tree, model = _params(cfg)
     B, S, extra = 2, 12, 3
@@ -314,15 +385,11 @@ def test_prefill_and_decode_match_jax(arch):
     lj, cj = _jit_prefill(cfg)(tree, _jb(pre))
     lt, ct = tt.prefill(model, _tb(pre), cfg)
     _close(lt, lj, LOGIT_TOL)
-    _close(ct["k"], cj["k"], LOGIT_TOL)
-    _close(ct["v"], cj["v"], LOGIT_TOL)
+    _close_caches(ct, cj, LOGIT_TOL)
 
     # teacher-forced decode of the next `extra` tokens
-    cj_full = jt.init_caches(cfg, B, S + extra)
-    ct_full = tt.init_caches(cfg, B, S + extra, "cpu")
-    for name in ("k", "v"):
-        cj_full[name] = cj_full[name].at[:, :, :S].set(cj[name])
-        ct_full[name][:, :, :S] = ct[name]
+    cj_full = _jax_rehome(cfg, cj, B, S + extra)
+    ct_full = rehome_caches(cfg, ct, B, S + extra, "cpu")
     toks = full["tokens"] if "tokens" in full else full["labels"]
     for i in range(extra):
         step = toks[:, S + i - 1]
@@ -331,10 +398,11 @@ def test_prefill_and_decode_match_jax(arch):
         lt, ct_full = tt.decode_step(model, {"tokens": torch.from_numpy(step)}, ct_full,
                                      S + i, cfg)
         _close(lt, lj, LOGIT_TOL)
-    _close(ct_full["k"], cj_full["k"], LOGIT_TOL)
+        _close_caches(ct_full, cj_full, LOGIT_TOL)
 
 
-@pytest.mark.parametrize("arch", ("qwen2-7b", "musicgen-medium", "starcoder2-3b"))
+@pytest.mark.parametrize("arch", ("qwen2-7b", "musicgen-medium", "starcoder2-3b",
+                                  "rwkv6-3b", "hymba-1.5b"))
 def test_prefill_decode_matches_full_forward(arch):
     """Teacher-forced decode after prefill reproduces the full forward's
     last logits, in the port (at the JAX test's 2e-2) and as in JAX."""
@@ -348,9 +416,7 @@ def test_prefill_decode_matches_full_forward(arch):
     _close(full_t.detach(), full_j, LOGIT_TOL)
 
     _, c = tt.prefill(model, {"tokens": torch.from_numpy(toks[:, :S])}, cfg)
-    caches = tt.init_caches(cfg, B, S + extra, "cpu")
-    for name in ("k", "v"):
-        caches[name][:, :, :S] = c[name]
+    caches = rehome_caches(cfg, c, B, S + extra, "cpu")
     for i in range(extra):
         out, caches = tt.decode_step(model, {"tokens": torch.from_numpy(toks[:, S + i])},
                                      caches, S + i, cfg)
@@ -411,15 +477,6 @@ def test_decode_step_writes_the_caches_in_place():
     changed = (out["k"] != before).flatten(3).any(-1)  # (L, B, S)
     assert changed[:, :, 3].all() and not changed[:, :, [0, 1, 2, 4, 5, 6, 7]].any()
     assert out["v"][:, :, 3].abs().sum() > 0 and not out["v"][:, :, 4:].any()
-
-
-@pytest.mark.parametrize("arch", ["mixtral-8x22b", "rwkv6-3b", "hymba-1.5b"])
-def test_later_families_raise(arch):
-    cfg = tconfigs.get_config(arch).model.reduce()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tt.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
-    with pytest.raises(NotImplementedError):
-        tt.init_caches(cfg, 1, 8, "cpu")
 
 
 # ---------------------------------------------------------------------------

@@ -67,8 +67,9 @@ def test_port_runs_with_jax_blocked():
         "black_scholes.numeric(n=64, device='cpu')\n"
         "import repro_torch.core, repro_torch.data, repro_torch.models\n"
         "from repro_torch.launch.serve import serve\n"
-        "toks = serve('qwen2-7b', batch=2, prompt_len=4, gen=3, device='cpu')\n"
-        "assert toks.shape == (2, 3)\n"
+        "for arch in ('qwen2-7b', 'rwkv6-3b', 'hymba-1.5b', 'mixtral-8x22b'):\n"
+        "    toks = serve(arch, batch=2, prompt_len=4, gen=3, device='cpu')\n"
+        "    assert toks.shape == (2, 3)\n"
         "loaded = [m for m in sys.modules if m == 'repro' or m.startswith('repro.')]\n"
         "assert not loaded, loaded\n"
         "print('ok')\n")

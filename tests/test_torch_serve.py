@@ -46,9 +46,15 @@ def _reference_logits(arch, tree, teacher):
     shape = (B, PROMPT, cfg.num_codebooks) if cfg.family == "audio" else (B, PROMPT)
     prompt = rng.integers(0, cfg.vocab_size, shape).astype(np.int32)
     logits, cp = jax.jit(lambda p, b: jt.prefill(p, b, cfg))(tree, {"tokens": jnp.asarray(prompt)})
-    caches = jt.init_caches(cfg, B, PROMPT + GEN)
-    for k in ("k", "v"):
-        caches[k] = jax.lax.dynamic_update_slice_in_dim(caches[k], cp[k], 0, axis=2)
+    if cfg.family == "ssm":
+        caches = cp  # the reference serve's branches (src/repro/launch/serve.py)
+    else:
+        caches = jt.init_caches(cfg, B, PROMPT + GEN)
+        for k in ("k", "v"):
+            caches[k] = jax.lax.dynamic_update_slice_in_dim(caches[k], cp[k], 0, axis=2)
+        for k in ("conv", "ssm"):
+            if k in caches:
+                caches[k] = cp[k]
     step = jax.jit(lambda p, b, c, n: jt.decode_step(p, b, c, n, cfg))
     out = [logits]
     for i in range(GEN - 1):
@@ -58,7 +64,8 @@ def _reference_logits(arch, tree, teacher):
     return [np.asarray(x, np.float32) for x in out]
 
 
-@pytest.mark.parametrize("name", ["qwen2-7b", "musicgen-medium"])
+@pytest.mark.parametrize("name", ["qwen2-7b", "musicgen-medium", "rwkv6-3b", "hymba-1.5b",
+                                  "mixtral-8x22b"])
 def test_serve_matches_jax(name):
     arch = _arch(name)
     cfg = arch.model
