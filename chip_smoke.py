@@ -66,12 +66,27 @@
    ``offload_params`` of one full-width layer, and the four remat
    policies on a 2-layer full-width model.  With two cards, launches each
    kernel on device 1 after device 0.
-7. Runs CG, Graph500 and the FFT convolutions at their default sizes, and
+7. Trains starcoder2-3b at full width and depth (30 layers, 3.03 B
+   parameters, bf16, fp32 masters; B 8 x S 2,048): 8 steps through
+   ``repro_torch.launch.train.train`` with the optimizer state on the card
+   (ms a step, tokens/s, peak memory, the optimizer timed apart, one step
+   under ``torch.profiler``), then 4 steps through ``build_train_step``
+   under a plan with int8 moments and the state in pinned host memory
+   (fetch and offload ms, pinned bytes, peak memory), each beside its
+   bound.  Checks: the same step-0 loss in both runs, finite losses; on a
+   2-layer cut at full width, the optimizer on the host bit for bit equal
+   to the card's, bf16 against fp32 at twice the reference's own gap, and
+   ``apply_updates`` against itself in fp64 on the CPU, shown to reject a
+   dropped bias correction; on the reduced configs, the loss falling over
+   30 steps, a restart from a checkpoint ending near an uninterrupted run,
+   and a bf16 + fp32 + int8 checkpoint round trip bit for bit.
+8. Runs CG, Graph500 and the FFT convolutions at their default sizes, and
    the kernel timing rows of ``repro_torch.bench.lm_bench``.
 
 Prints ``{"serve_path": ...}``, ``{"family_serve": ...}``,
-``{"model_checks": ...}``, ``{"movement_path": ...}`` and
-``{"kernels": [...]}`` lines, then as its last line
+``{"model_checks": ...}``, ``{"movement_path": ...}``,
+``{"train_path": ...}`` and ``{"kernels": [...]}`` lines, then as its last
+line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 Exits non-zero, with no such line, if a check fails, or if there is no CUDA
 card or no port beside this script.
@@ -211,16 +226,19 @@ PREFETCH_STEPS, PREFETCH_DISTINCT, PREFETCH_WARM = 16, 4, 3
 REMAT_S, REMAT_ATOL = 2048, 1e-5
 DECODE_PROFILE_STEPS = 4
 # The other families, served as qwen2-7b is (B 8, 2,048-token prompts, 32
-# tokens) at full width: rwkv6-3b and hymba-1.5b at full depth, mixtral-8x22b
-# at FAMILY_LAYERS (56 layers are 282 GB in bf16).  Their model checks hold
-# bf16 against fp32 at BF16_LOGIT_REL (mixtral's fp32 copy at
-# FAMILY_CHECK_LAYERS), where family_fault must fail; rwkv and hymba also run
+# tokens) at full width and cut in depth to FAMILY_LAYERS: mixtral-8x22b
+# because 56 layers are 282 GB in bf16, rwkv6-3b and hymba-1.5b (32 layers
+# each) to keep the script's time with the training path near 300 s: their
+# serves are host-bound time loops, the same for every layer.  Their model
+# checks run at FAMILY_CHECK_LAYERS (full depth, mixtral's fp32 copy at 2)
+# and hold bf16 against fp32 at BF16_LOGIT_REL, where family_fault must fail;
+# rwkv and hymba also run
 # fp32 prefill + decode against the full forward.  Their prefill is profiled
 # at PROFILE_LAYERS: the time loops of the scans launch ~8,000 kernels a
 # layer, which the profiler takes seconds to trace, and every layer is alike.
 FAMILY_MODELS = ("rwkv6-3b", "hymba-1.5b", "mixtral-8x22b")
-FAMILY_LAYERS = {"mixtral-8x22b": 8}
-FAMILY_CHECK_LAYERS = {"mixtral-8x22b": 2}
+FAMILY_LAYERS = {"mixtral-8x22b": 8, "rwkv6-3b": 16, "hymba-1.5b": 16}
+FAMILY_CHECK_LAYERS = {"mixtral-8x22b": 2, "rwkv6-3b": 32, "hymba-1.5b": 32}
 PROFILE_LAYERS = 1
 # rwkv6-3b in bf16 leaves fp32 further than the other models do, in the
 # reference as in the port: on a narrow copy (d 256, 32 layers, random
@@ -231,6 +249,39 @@ FAMILY_BF16_LOGIT_REL = {"rwkv6-3b": 0.3}
 # one full-width mixtral MoE layer, fp32, against a per-token loop over
 # MOE_LOOP_TOKENS tokens, with a capacity that drops nothing
 MOE_LOOP_TOKENS, MOE_LOOP_ATOL, MOE_LOOP_RTOL = 512, 1e-4, 1e-4
+# the library's matrix-product kernels, by name, in a profile
+GEMM_KERNEL = re.compile(r"gemm|nvjet|cutlass|xmma", re.IGNORECASE)
+# The training path: starcoder2-3b at full width and depth (30 layers, 3.03 B
+# parameters), bf16 with fp32 masters, through launch.train.train for
+# TRAIN_STEPS steps with the state on the card, then build_train_step for
+# TRAIN_HOST_STEPS under the planner's escalated plan (int8 moments, the
+# optimizer state in pinned host memory).  train_4k's 256 x 4,096 tokens
+# are cut to B 8 x S 2,048: one layer's recompute holds the dense
+# attention's fp32 scores, 8 x 24 x S^2 x 4 bytes (3.2 GB a tensor at 2,048,
+# four times that at 4,096).
+TRAIN_MODEL, TRAIN_B, TRAIN_S = "starcoder2-3b", 8, 2048
+TRAIN_STEPS, TRAIN_HOST_STEPS = 8, 4
+# Checks on a 2-layer cut at full width, B 8 x S 2,048: the optimizer on the
+# host against the card, bit for bit over TRAIN_CUT_STEPS steps from step
+# TRAIN_CUT_AT (past the 100-step warmup); bf16 against fp32 on the same
+# weights, the loss's relative gap and the relative L2 of all gradients at
+# most twice the reference's own gap on narrow 2-layer copies
+# (TRAIN_NARROW, 2 x 256 tokens, seeds 0-2: JAX's loss gap 3.4e-6-2.0e-5,
+# its gradients' 0.0098-0.0106; tests/test_torch_train.py); apply_updates
+# on the card against the same function in fp64 on the CPU, the fp32 state
+# within TRAIN_STATE_RTOL of each leaf's largest magnitude and int8 codes
+# equal but within TRAIN_EDGE of a rounding edge, where dropping the bias
+# correction must fail.
+TRAIN_CUT_LAYERS, TRAIN_CUT_STEPS, TRAIN_CUT_AT = 2, 3, 100
+TRAIN_NARROW = dict(d_model=384, num_heads=12, num_kv_heads=1, head_dim=32, d_ff=1536,
+                    vocab_size=4096)
+TRAIN_BF16_LOSS_REL, TRAIN_BF16_GRAD_REL = 4.5e-5, 0.022
+TRAIN_STATE_RTOL, TRAIN_EDGE = 1e-6, 1e-3
+# The reduced-config drills of tests/test_end_to_end.py on the card.  The
+# card's backward adds with atomics, so a run restarted from a checkpoint
+# ends within TRAIN_RESTART_RTOL of an uninterrupted one, not bit for bit
+# (tests/test_torch_train.py holds that on the CPU).
+TRAIN_RESTART_RTOL = 1e-3
 
 
 @contextlib.contextmanager
@@ -295,6 +346,55 @@ def family_fault(params):
         with torch.no_grad():
             for p, s in zip(faulty, saved):
                 p.copy_(s)
+
+
+def rel_l2(pairs) -> float:
+    """sqrt(sum |got - want|^2 / sum |want|^2) over (got, want) pairs of
+    float arrays or tensors."""
+    num = den = 0.0
+    for got, want in pairs:
+        d = got - want
+        num += float((d * d).sum())
+        den += float((want * want).sum())
+    return math.sqrt(num / den)
+
+
+def train_bf16_gap(tf, params, cfg, batch) -> dict:
+    """The loss and gradients of ``params`` (bf16) against the same weights
+    in fp32, under remat "full": the loss's relative gap and the relative
+    L2 of all gradients together.  Leaves ``params`` in fp32."""
+    import dataclasses
+
+    import torch
+
+    loss = tf.loss_fn(params, batch, cfg)
+    got = [g.float() for g in torch.autograd.grad(loss, list(params.parameters()))]
+    params.float()
+    want = tf.loss_fn(params, batch, dataclasses.replace(cfg, dtype="float32"))
+    grads = torch.autograd.grad(want, list(params.parameters()))
+    return {"loss": abs(loss.item() - want.item()) / abs(want.item()),
+            "grads": rel_l2(zip(got, grads))}
+
+
+def int8_edges(prev: dict, grads: dict, new: dict, cfg, edge: float) -> dict:
+    """Per parameter name, where an int8 AdamW step from the state leaves
+    ``prev`` with ``grads`` puts m and sqrt(v), in fp64, within ``edge`` of
+    a rounding edge at the scales of the state leaves ``new``: there two
+    correct computations may round to codes one apart."""
+    import torch
+
+    out = {}
+    for n, g in grads.items():
+        s, g = prev[n], g.double()
+        m = s["m"].double() * s["m_scale"].double()
+        v = torch.square(s["v"].double() * s["v_scale"].double())
+        m = cfg.b1 * m + (1 - cfg.b1) * g
+        v = cfg.b2 * v + (1 - cfg.b2) * g * g
+        out[n] = {}
+        for key, x in (("m", m), ("v", torch.sqrt(v))):
+            r = (x / new[n][key + "_scale"].double()).abs()
+            out[n][key] = ((r - r.floor()) - 0.5).abs() < edge
+    return out
 
 
 def row_scaled_limit(want, atol, rtol, row_rtol=0.0):
@@ -1138,10 +1238,11 @@ class Smoke:
         self.free()
         return out
 
-    def profile_calls(self, calls) -> dict:
+    def profile_calls(self, calls, top: int = 5) -> dict:
         """For each (name, fn, n) of ``calls``, n calls of fn under
         torch.profiler: the host's wall time a call beside the summed time
-        of the device's kernels, and the kernels that take the most."""
+        of the device's kernels, and the ``top`` kernels that take the
+        most."""
         torch = self.torch
         from torch.autograd import DeviceType
         from torch.profiler import ProfilerActivity, profile
@@ -1160,12 +1261,14 @@ class Smoke:
                 if e.device_type == DeviceType.CUDA:
                     by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
             busy_ms = sum(by_name.values()) / 1e3 / n
-            top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
+            slow = sorted(by_name.items(), key=lambda kv: -kv[1])[:top]
+            gemm = sum(v for k, v in by_name.items() if GEMM_KERNEL.search(k))
             out[name] = {"wall_ms": wall_ms, "kernels": sum(1 for e in prof.events()
                                                             if e.device_type == DeviceType.CUDA) // n,
                          "device_busy_ms": busy_ms if by_name else None,
                          "device_busy_share": busy_ms / wall_ms if by_name else None,
-                         "top_kernels_ms": {k[:80]: v / 1e3 / n for k, v in top}}
+                         "gemm_ms": gemm / 1e3 / n if by_name else None,
+                         "top_kernels_ms": {k[:80]: v / 1e3 / n for k, v in slow}}
             print(f"profile {name}: wall {wall_ms:.2f} ms, device kernels "
                   + (f"{busy_ms:.2f} ms ({busy_ms / wall_ms:.3f} busy) in "
                      f"{out[name]['kernels']} launches" if by_name else "not measured "
@@ -1746,13 +1849,460 @@ class Smoke:
         iterator, layer streaming and the remat policies."""
         print("== movement layer: copy rates, PrefetchIterator, streaming, remat")
         self.free()
-        rates = self.copy_rates()
+        rates = self.rates = self.copy_rates()
         prefetch = self.prefetch_path(rates)
         streaming = self.streaming_path(Block)
         remat = self.remat_path(tf, init_params)
         print(json.dumps({"movement_path": {
             "copy_bytes_per_s": rates, "prefetch": prefetch, "streaming": streaming,
             "remat": remat, "power_limit": self.power_limit}}))
+
+    # -- the training path -------------------------------------------------
+
+    def device_batch(self, batch_np) -> dict:
+        return {k: self.torch.from_numpy(v).to(DEVICE) for k, v in batch_np.items()}
+
+    @staticmethod
+    def train_bound(cfg, n_params, moment_bytes) -> dict:
+        """A step's least time: 6 x the matrix parameters (the tied head
+        included) x the tokens, and causal QK^T and PV forward and backward
+        (3 x 4 Hq Dh S(S+1)/2 L B), at the bf16 peak, remat's recompute not
+        counted; then the optimizer's bytes at the memory rate: each
+        gradient read for the norm and for the update, the parameter
+        written, the fp32 master and both moments read and written."""
+        mats = (cfg.num_layers * (cfg.attn_params_per_layer() + cfg.ffn_params_per_layer())
+                + cfg.padded_vocab * cfg.d_model)
+        tokens = TRAIN_B * TRAIN_S
+        pairs = TRAIN_S * (TRAIN_S + 1) // 2
+        flops = {"matrix": 6 * mats * tokens,
+                 "attention": 12 * cfg.num_heads * cfg.head_dim * pairs * cfg.num_layers * TRAIN_B}
+        compute_ms = sum(flops.values()) / PEAK_BF16_FLOPS * 1e3
+        opt_bytes = n_params * (2 + 2 + 2 + 8 + 4 * moment_bytes)
+        opt_ms = opt_bytes / PEAK_BYTES_PER_S * 1e3
+        return {"bound_flops": flops, "bound_compute_ms": compute_ms,
+                "bound_optimizer_bytes": opt_bytes, "bound_optimizer_ms": opt_ms,
+                "bound_ms": compute_ms + opt_ms}
+
+    def train_full(self, tf) -> dict:
+        """launch.train.train at full width and depth with the state on the
+        card: ms a step, tokens/s and peak memory; the optimizer (clip and
+        apply_updates) timed apart; one step under torch.profiler."""
+        import tempfile
+
+        torch = self.torch
+        from repro_torch.configs import ShapeConfig, get_config
+        from repro_torch.data import DataConfig, synthetic_batches
+        from repro_torch.launch.step import _adamw_cfg, build_train_step
+        from repro_torch.launch.train import train
+        from repro_torch.optim import apply_updates, clip_by_global_norm, warmup_cosine
+
+        arch = get_config(TRAIN_MODEL)
+        cfg = arch.model
+        shape = ShapeConfig("train", TRAIN_S, TRAIN_B, "train")
+        self.start_app(f"train {TRAIN_MODEL} full width B={TRAIN_B} S={TRAIN_S}, "
+                       f"{TRAIN_STEPS} steps, the state on the card")
+        with tempfile.TemporaryDirectory() as d:
+            (params, opt), report = train(TRAIN_MODEL, reduced=False, steps=TRAIN_STEPS,
+                                          batch=TRAIN_B, seq=TRAIN_S, ckpt_dir=d,
+                                          checkpoint_every=10**6, device=DEVICE)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated()
+        counts = {name: fn.launches for name, fn in self.counters.items()}
+        ms = statistics.median(report.step_times[1:]) * 1e3
+        n_params = sum(p.numel() for p in params.parameters())
+        batch = self.device_batch(next(synthetic_batches(cfg, shape, DataConfig(seed=0))))
+        names, leaves = zip(*params.named_parameters())
+        loss = tf.loss_fn(params, batch, cfg, remat=arch.train.remat)
+        grads = dict(zip(names, torch.autograd.grad(loss, leaves)))
+        del loss
+        acfg = _adamw_cfg(arch, None)
+        lr = warmup_cosine(TRAIN_STEPS, peak_lr=arch.train.learning_rate,
+                           warmup_steps=arch.train.warmup_steps, total_steps=TRAIN_STEPS)
+
+        def optimizer():
+            clip_by_global_norm(grads, arch.train.grad_clip)
+            apply_updates(params, grads, opt, acfg, lr)
+
+        opt_ms = self.time_ms(optimizer)
+        del grads
+        step = build_train_step(arch, shape, None, None, total_steps=TRAIN_STEPS, device=DEVICE)
+        prof = self.profile_calls((("train_step", lambda: step(params, opt, batch, TRAIN_STEPS),
+                                    1),), top=12)["train_step"]
+        del params, opt, batch, step, leaves
+        self.free()
+        bound = self.train_bound(cfg, n_params, 4)
+        out = {"model": TRAIN_MODEL, "batch": TRAIN_B, "seq": TRAIN_S, "steps": TRAIN_STEPS,
+               "params": n_params, "losses": report.losses, "step_ms": report.step_times,
+               "ms_per_step": ms, "tokens_per_s": TRAIN_B * TRAIN_S / ms * 1e3,
+               "max_memory_allocated": peak, "optimizer_ms": opt_ms,
+               "optimizer_share": opt_ms / ms, **bound, "share": bound["bound_ms"] / ms,
+               "profile": prof, "kernel_launches": counts}
+        print(f"train {TRAIN_MODEL}: {ms:.1f} ms a step (median of steps 1-{TRAIN_STEPS - 1}), "
+              f"{out['tokens_per_s']:.0f} tokens/s, bound {bound['bound_ms']:.1f} ms "
+              f"({bound['bound_compute_ms']:.1f} compute + {bound['bound_optimizer_ms']:.1f} "
+              "optimizer; "
+              f"share {out['share']:.3f}), optimizer {opt_ms:.1f} ms ({out['optimizer_share']:.3f}"
+              f" of a step), peak {peak} bytes, losses {report.losses}; the model calls the "
+              f"plain attention, kernel launches {counts}")
+        return out
+
+    def train_host(self, init_params) -> dict:
+        """The same model and batches under a plan with int8 moments and the
+        optimizer state in pinned host memory, through build_train_step:
+        ms a step, fetch and offload ms, pinned host bytes, peak memory."""
+        torch = self.torch
+        from repro_torch.checkpoint.checkpointer import tree_leaves
+        from repro_torch.configs import MeshConfig, ShapeConfig, get_config
+        from repro_torch.core.advise import MemorySpace
+        from repro_torch.core.residency import MemoryBudget, ResidencyPlan
+        from repro_torch.core.streaming import fetch_params, offload_params
+        from repro_torch.data import DataConfig, synthetic_batches
+        from repro_torch.launch.step import _adamw_cfg, build_train_step
+        from repro_torch.optim import init_state
+
+        arch = get_config(TRAIN_MODEL)
+        cfg = arch.model
+        shape = ShapeConfig("train", TRAIN_S, TRAIN_B, "train")
+        plan = ResidencyPlan(arch.name, shape.name, MeshConfig(), MemoryBudget(),
+                             opt_space=MemorySpace.HOST, int8_moments=True,
+                             remat=arch.train.remat)
+        self.start_app(f"train {TRAIN_MODEL} full width, {TRAIN_HOST_STEPS} steps, int8 "
+                       "moments and the optimizer state in pinned host memory")
+        torch.cuda.reset_peak_host_memory_stats()
+        pinned_before = torch.cuda.host_memory_stats().get("allocated_bytes.current")
+        params = init_params(cfg, torch.Generator(device=DEVICE).manual_seed(0), DEVICE)
+        state = [offload_params(init_state(params, _adamw_cfg(arch, plan)), DEVICE)]
+        host_bytes = sum(x.numel() * x.element_size() for x in tree_leaves(state[0]))
+        self.expect("the host plan's optimizer state is in pinned host memory",
+                    all(x.is_pinned() for x in tree_leaves(state[0])))
+        step = build_train_step(arch, shape, None, plan, total_steps=TRAIN_STEPS, device=DEVICE)
+        gen = synthetic_batches(cfg, shape, DataConfig(seed=0))
+        losses, times = [], []
+        for i in range(TRAIN_HOST_STEPS):
+            batch = self.device_batch(next(gen))
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            # the step gets the only reference to the pinned state, so that
+            # the state it has fetched is freed before it offloads the new one
+            params, new, metrics = step(params, state.pop(), batch, i)
+            state.append(new)
+            losses.append(float(metrics["loss"]))
+            times.append(time.perf_counter() - t0)
+            del new, batch, metrics
+        peak = torch.cuda.max_memory_allocated()
+        pinned = {k: v for k, v in torch.cuda.host_memory_stats().items()
+                  if k.startswith("allocated_bytes.") or k.startswith("num_host_alloc")}
+        pinned["allocated_bytes.current_before"] = pinned_before
+        fetch_ms, offload_ms = [], []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            on_card = fetch_params(state[0], DEVICE)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            back = offload_params(on_card, DEVICE)
+            offload_ms.append((time.perf_counter() - t1) * 1e3)
+            fetch_ms.append((t1 - t0) * 1e3)
+            del on_card, back
+        n_params = sum(p.numel() for p in params.parameters())
+        del params, state, step
+        self.free()
+        ms = statistics.median(times[1:]) * 1e3
+        bound = self.train_bound(cfg, n_params, 1)
+        link = host_bytes / self.rates["h2d_pinned"] * 1e3 + host_bytes / self.rates["d2h_pinned"] * 1e3
+        out = {"steps": TRAIN_HOST_STEPS, "losses": losses, "step_ms": [t * 1e3 for t in times],
+               "ms_per_step": ms, "tokens_per_s": TRAIN_B * TRAIN_S / ms * 1e3,
+               "max_memory_allocated": peak, "host_state_bytes": host_bytes,
+               "pinned_allocator": pinned, "fetch_ms": statistics.median(fetch_ms),
+               "offload_ms": statistics.median(offload_ms), **bound,
+               "link_ms_at_measured_copy_rates": link,
+               "bound_ms_with_link": bound["bound_ms"] + link,
+               "share": (bound["bound_ms"] + link) / ms}
+        print(f"train host plan: {ms:.1f} ms a step, fetch {out['fetch_ms']:.1f} ms, offload "
+              f"{out['offload_ms']:.1f} ms of {host_bytes} bytes, bound {bound['bound_ms']:.1f} + "
+              f"link {link:.1f} ms (share {out['share']:.3f}), peak {peak} bytes, pinned "
+              f"{pinned}, losses {losses}")
+        return out
+
+    def train_cut_checks(self, tf, init_params) -> dict:
+        """On a 2-layer cut of the model at full width: the optimizer on the
+        host against the card (bit for bit), bf16 against fp32, and
+        apply_updates against itself in fp64 on the CPU, with one fault."""
+        import dataclasses
+        import itertools
+
+        torch = self.torch
+        from repro_torch.checkpoint.checkpointer import tree_leaves
+        from repro_torch.configs import MeshConfig, ShapeConfig, get_config
+        from repro_torch.core.advise import MemorySpace
+        from repro_torch.core.residency import MemoryBudget, ResidencyPlan
+        from repro_torch.core.streaming import offload_params
+        from repro_torch.data import DataConfig, synthetic_batches
+        from repro_torch.launch.step import _adamw_cfg, build_train_step
+        from repro_torch.optim import adamw
+
+        arch = get_config(TRAIN_MODEL)
+        arch = dataclasses.replace(arch, model=dataclasses.replace(
+            arch.model, num_layers=TRAIN_CUT_LAYERS))
+        cfg = arch.model
+        shape = ShapeConfig("cut", TRAIN_S, TRAIN_B, "train")
+        print(f"== train checks: {TRAIN_MODEL} cut to {TRAIN_CUT_LAYERS} layers, full width, "
+              f"B={TRAIN_B} S={TRAIN_S}")
+        self.free()
+        batches = [self.device_batch(b) for b in itertools.islice(
+            synthetic_batches(cfg, shape, DataConfig(seed=1)), TRAIN_CUT_STEPS)]
+
+        def fresh(seed):
+            return init_params(cfg, torch.Generator(device=DEVICE).manual_seed(seed), DEVICE)
+
+        out = {"host_vs_device": {}, "seconds": {}}
+        t0 = time.perf_counter()
+        deterministic = torch.are_deterministic_algorithms_enabled()
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            for int8 in (False, True):
+                finals = []
+                for space in (MemorySpace.DEVICE, MemorySpace.HOST):
+                    plan = ResidencyPlan(cfg.name, shape.name, MeshConfig(), MemoryBudget(),
+                                         opt_space=space, int8_moments=int8,
+                                         remat=arch.train.remat)
+                    params = fresh(1)
+                    opt = adamw.init_state(params, _adamw_cfg(arch, plan))
+                    if space is MemorySpace.HOST:
+                        opt = offload_params(opt, DEVICE)
+                    step = build_train_step(arch, shape, None, plan, device=DEVICE)
+                    for i, b in enumerate(batches):
+                        params, opt, _ = step(params, opt, b, TRAIN_CUT_AT + i)
+                    finals.append([x.detach().to(DEVICE, copy=True) for x in tree_leaves((params, opt))])
+                    del params, opt, step
+                differ = sum(not torch.equal(x, y) for x, y in zip(*finals))
+                label = "int8" if int8 else "fp32"
+                out["host_vs_device"][label] = differ
+                self.expect(f"c: {TRAIN_CUT_STEPS} steps with the optimizer on the host == on the "
+                            f"card, {label} moments, bit for bit ({differ} of {len(finals[0])} "
+                            "tensors differ)", differ == 0)
+                del finals
+        finally:
+            torch.use_deterministic_algorithms(deterministic)
+        self.free()
+        out["seconds"]["c"] = time.perf_counter() - t0
+
+        params = fresh(2)
+        gap = train_bf16_gap(tf, params, cfg, batches[0])
+        del params
+        self.free()
+        out["bf16_vs_fp32"] = {**gap, "limits": [TRAIN_BF16_LOSS_REL, TRAIN_BF16_GRAD_REL]}
+        self.expect(f"d: bf16 vs fp32 loss gap {gap['loss']:.3e} <= {TRAIN_BF16_LOSS_REL}",
+                    gap["loss"] <= TRAIN_BF16_LOSS_REL)
+        self.expect(f"d: bf16 vs fp32 gradients rel L2 {gap['grads']:.4e} <= "
+                    f"{TRAIN_BF16_GRAD_REL}", gap["grads"] <= TRAIN_BF16_GRAD_REL)
+        out["seconds"]["d"] = time.perf_counter() - t0 - out["seconds"]["c"]
+        out["update_vs_fp64"] = self.update_vs_fp64(tf, fresh(3), arch, batches[0])
+        out["seconds"]["e_f"] = time.perf_counter() - t0 - sum(out["seconds"].values())
+        del batches
+        self.free()
+        return out
+
+    def update_vs_fp64(self, tf, params, arch, batch) -> dict:
+        """apply_updates on the card from a state one step old, against the
+        same call in fp64 on the CPU from the same values, made a scale
+        group at a time so that the fp64 copies stay small; for fp32
+        moments also the card's call with the bias correction dropped,
+        which must fail."""
+        torch = self.torch
+        from repro_torch.optim import adamw
+
+        cfg = arch.model
+        names, leaves = zip(*params.named_parameters())
+        loss = tf.loss_fn(params, batch, cfg)
+        grads = dict(zip(names, torch.autograd.grad(loss, leaves)))
+        del loss
+        lr = torch.tensor(arch.train.learning_rate, dtype=torch.float32)
+        initial = {n: p.detach().clone() for n, p in params.named_parameters()}
+
+        def clone(tree):
+            return {k: clone(v) if isinstance(v, dict) else v.clone() for k, v in tree.items()}
+
+        def wide(x):  # a CPU copy: fp leaves in fp64, int8 codes and the step as they are
+            x = x.to(torch.float64) if x.is_floating_point() else x
+            return x.to("cpu", copy=True)
+
+        def card_step(start, start_params, fault=False):
+            with torch.no_grad():
+                for n, p in params.named_parameters():
+                    p.copy_(start_params[n])
+            state = clone(start)
+            real = adamw._corrections
+            if fault:  # f: the bias correction dropped
+                adamw._corrections = lambda step, cfg, dtype: (
+                    torch.ones((), dtype=dtype, device=step.device),) * 2
+            try:
+                adamw.apply_updates(params, grads, state, acfg, lr)
+            finally:
+                adamw._corrections = real
+            return state
+
+        out = {}
+        for int8 in (False, True):
+            label = "int8" if int8 else "fp32"
+            acfg = adamw.AdamWConfig(weight_decay=arch.train.weight_decay, int8_moments=int8)
+            with torch.no_grad():
+                for n, p in params.named_parameters():
+                    p.copy_(initial[n])
+            start = adamw.init_state(params, acfg)
+            adamw.apply_updates(params, grads, start, acfg, lr)   # moments of one step
+            start_params = {n: p.detach().clone() for n, p in params.named_parameters()}
+            got = {"state": card_step(start, start_params)}
+            bitcast = all(torch.equal(p, got["state"]["leaves"][n]["master"].to(p.dtype))
+                          for n, p in params.named_parameters())
+            if not int8:
+                got["fault"] = card_step(start, start_params, fault=True)
+            found = {k: [0.0, 0, 0] for k in got}  # largest rel error, codes apart, at edges
+            cpu_s = 0.0
+            for group in adamw.scale_groups(start_params):
+                want = {"step": wide(start["step"]), "leaves": {
+                    n: {k: wide(v) for k, v in start["leaves"][n].items()} for n in group}}
+                t0 = time.perf_counter()
+                adamw.apply_updates({n: wide(start_params[n]) for n in group},
+                                    {n: wide(grads[n]) for n in group}, want, acfg, lr)
+                cpu_s += time.perf_counter() - t0
+                # compared on the card, the reference's results in fp64
+                want = {n: {k: v.to(DEVICE) for k, v in want["leaves"][n].items()}
+                        for n in group}
+                edges = (int8_edges({n: start["leaves"][n] for n in group},
+                                    {n: grads[n] for n in group}, want, acfg, TRAIN_EDGE)
+                         if int8 else None)
+                for key, state in got.items():
+                    for n in group:
+                        for k, x in state["leaves"][n].items():
+                            w = want[n][k]
+                            if x.dtype == torch.int8:
+                                diff = x != w
+                                found[key][1] += int(diff.sum())
+                                found[key][2] += int((diff & edges[n][k]).sum())
+                            else:
+                                err = (x.double() - w).abs().max().item()
+                                found[key][0] = max(found[key][0],
+                                                    err / max(w.abs().max().item(), 1e-30))
+                del want, edges
+            worst, codes, at_edges = found["state"]
+            out[label] = {"max_rel_err": worst, "codes_differing": codes,
+                          "codes_differing_at_edges": at_edges, "cpu_fp64_s": cpu_s}
+            self.expect(f"e: apply_updates on the card vs fp64 on the CPU, {label} moments: "
+                        f"state within {worst:.3e} <= {TRAIN_STATE_RTOL} of each leaf's largest; "
+                        f"{codes} int8 codes differ, {at_edges} of them at rounding edges",
+                        worst <= TRAIN_STATE_RTOL and codes == at_edges)
+            self.expect(f"e: the parameters are their masters in bf16 ({label})", bitcast)
+            if not int8:
+                fault = found["fault"][0]
+                out["fault_no_bias_correction_max_rel_err"] = fault
+                self.expect(f"f: the fp64 check rejects apply_updates without the bias "
+                            f"correction: {fault:.3e} > {TRAIN_STATE_RTOL}",
+                            fault > TRAIN_STATE_RTOL)
+            del got, start, start_params
+        del params, grads, initial
+        return out
+
+    def train_drills(self, init_params) -> dict:
+        """The reduced configs on the card: the loss falls over 30 steps; a
+        fault at step 12 restarts from step 10's checkpoint and ends near
+        an uninterrupted run; a bf16 + fp32 + int8 state survives a
+        checkpoint round trip bit for bit."""
+        import dataclasses
+        import tempfile
+
+        torch = self.torch
+        from repro_torch.checkpoint import Checkpointer
+        from repro_torch.checkpoint.checkpointer import tree_leaves
+        from repro_torch.configs import get_config
+        from repro_torch.launch.train import train
+        from repro_torch.optim import adamw
+
+        print("== train drills: reduced configs")
+        out = {}
+        with tempfile.TemporaryDirectory() as d:
+            _, rep = train("starcoder2-3b", steps=30, batch=4, seq=64, ckpt_dir=f"{d}/g",
+                           checkpoint_every=10, device=DEVICE)
+            first, last = statistics.mean(rep.losses[:5]), statistics.mean(rep.losses[-5:])
+            out["loss_falls"] = {"first5": first, "last5": last, "losses": rep.losses}
+            self.expect(f"g: reduced starcoder2-3b, 30 steps: mean of the last 5 losses {last:.4f}"
+                        f" < mean of the first 5 {first:.4f} - 0.05", last < first - 0.05)
+            kw = dict(steps=25, batch=4, seq=64, checkpoint_every=5, device=DEVICE)
+            _, clean = train("qwen2-7b", ckpt_dir=f"{d}/clean", **kw)
+            _, rep = train("qwen2-7b", ckpt_dir=f"{d}/fault", fault_schedule=(12,), **kw)
+            err = abs(rep.losses[-1] - clean.losses[-1]) / abs(clean.losses[-1])
+            out["restart"] = {"restarts": rep.restarts, "steps_completed": rep.steps_completed,
+                              "final_loss": rep.losses[-1], "clean_final_loss": clean.losses[-1],
+                              "rel_err": err, "tol": TRAIN_RESTART_RTOL}
+            self.expect(f"h: reduced qwen2-7b, fault at step 12: restarts {rep.restarts} == 1, "
+                        f"final loss {rep.losses[-1]:.6f} within {err:.2e} <= "
+                        f"{TRAIN_RESTART_RTOL} of an uninterrupted run's {clean.losses[-1]:.6f}",
+                        rep.restarts == 1 and rep.steps_completed >= 25
+                        and err <= TRAIN_RESTART_RTOL)
+
+            cfg = dataclasses.replace(get_config("starcoder2-3b").model.reduce(),
+                                      dtype="bfloat16")
+            acfg = adamw.AdamWConfig(int8_moments=True)
+
+            def tree(seed):
+                params = init_params(cfg, torch.Generator(device=DEVICE).manual_seed(seed), DEVICE)
+                state = adamw.init_state(params, acfg)
+                grads = {n: torch.randn(p.shape, device=DEVICE).to(p.dtype)
+                         for n, p in params.named_parameters()}
+                adamw.apply_updates(params, grads, state, acfg, 1e-2)
+                return params, state
+
+            saved = tree(4)
+            ckpt = Checkpointer(f"{d}/i")
+            ckpt.save(1, saved, blocking=True)
+            target = tree(5)
+            ckpt.restore(1, target)
+            pairs = list(zip(tree_leaves(saved), tree_leaves(target)))
+            dtypes = sorted({str(x.dtype) for x, _ in pairs})
+            same = all(torch.equal(x, y) and y.is_cuda for x, y in pairs)
+            out["checkpoint_dtypes"] = dtypes
+            self.expect(f"i: a checkpoint of {len(pairs)} tensors ({', '.join(dtypes)}) restores "
+                        "onto the card bit for bit", same)
+        return out
+
+    def train_path(self, tf, init_params):
+        """The training path: starcoder2-3b at full width with the state on
+        the card and under the escalated plan, checks a-i."""
+        seconds = {}
+        t0 = time.perf_counter()
+        full = self.train_full(tf)
+        seconds["full"] = time.perf_counter() - t0
+        # the cut's checks before the host plan, whose pinned blocks stay
+        # cached in host memory, beside the CPU's fp64 reference
+        cut = self.train_cut_checks(tf, init_params)
+        seconds["cut_checks"] = time.perf_counter() - t0 - sum(seconds.values())
+        host = self.train_host(init_params)
+        seconds["host_plan"] = time.perf_counter() - t0 - sum(seconds.values())
+        self.expect(f"a: step 0's loss is the same in both full-width runs "
+                    f"({full['losses'][0]!r} == {host['losses'][0]!r})",
+                    full["losses"][0] == host["losses"][0])
+        finite = all(math.isfinite(x) for x in full["losses"] + host["losses"])
+        self.expect("b: the losses of both full-width runs are finite", finite)
+        fell = full["losses"][-1] < full["losses"][0]
+        if fell:
+            self.expect(f"b: the fp32-state run's last loss {full['losses'][-1]:.4f} < its first "
+                        f"{full['losses'][0]:.4f}", fell)
+        else:
+            print(f"b: the warmup's first {TRAIN_STEPS} steps move the loss "
+                  f"{full['losses'][0]:.4f} -> {full['losses'][-1]:.4f}; the fall is held "
+                  "by g")
+        drop = full["max_memory_allocated"] - host["max_memory_allocated"]
+        state_bytes = full["params"] * 12  # fp32 master and moments
+        self.expect(f"the host plan's device peak is {drop} bytes below the card plan's, at "
+                    f"least 0.75 of the fp32 master and moments ({state_bytes})",
+                    drop >= 0.75 * state_bytes)
+        drills = self.train_drills(init_params)
+        seconds["drills"] = time.perf_counter() - t0 - sum(seconds.values())
+        print("train path: " + ", ".join(f"{k} {v:.1f} s" for k, v in seconds.items()))
+        print(json.dumps({"train_path": {
+            "full": full, "host_plan": host, "peak_drop": drop, "loss_fell": fell,
+            "cut": cut, "drills": drills, "seconds": seconds,
+            "power_limit": self.power_limit}}))
 
     def second_device(self):
         """Each kernel launched on device 1 after device 0: the shared-memory
@@ -1863,6 +2413,7 @@ def main() -> int:
     smoke.family_serve(tf, init_params, init_caches)
     smoke.model_checks(tf, init_params)
     smoke.movement_path(tf, init_params, tf.Block)
+    smoke.train_path(tf, init_params)
     smoke.second_device()
     smoke.plain_apps()
     smoke.kernel_timing_rows(kernel_rows)

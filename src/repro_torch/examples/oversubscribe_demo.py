@@ -1,11 +1,17 @@
-"""Paged decode over a block-table KV pool: the counterpart of section 3 of
+"""Oversubscription end to end: the counterpart of sections 1-3 of
 ``examples/oversubscribe_demo.py``.
 
-    PYTHONPATH=src python -m repro_torch.examples.oversubscribe_demo [--device cpu]
+    PYTHONPATH=src python -m repro_torch.examples.oversubscribe_demo \
+        [--device cpu --hbm-bytes N]
 
-Sections 1, 2 and 4 of that demo (the residency planner's escalation, the
-KV host tier's plan and the UM simulator) wait for the port of the
-residency planner and the UM simulator.
+1. The ResidencyPlanner's escalation for grok-1-314b / train_4k on the
+   reference's 256-device mesh, at the card's memory a device.
+2. The KV host tier it plans for an extreme decode working set.
+3. Paged decode over a block-table KV pool.
+
+On the CPU there is no card's memory to plan against: ``--hbm-bytes``
+gives it.  Section 4 of that demo (the UM simulator) waits for the port of
+the simulator.
 """
 from __future__ import annotations
 
@@ -14,7 +20,8 @@ import dataclasses
 
 import torch
 
-from repro_torch.configs import ModelConfig, get_config
+from repro_torch.configs import MeshConfig, ModelConfig, ShapeConfig, get_config, get_shape
+from repro_torch.core.residency import GB, ResidencyPlanner
 from repro_torch.device import resolve
 from repro_torch.kernels import paged_attention
 
@@ -62,7 +69,31 @@ def main(argv=None) -> None:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--device", default=None,
                         help="torch device (default: the CUDA card)")
+    parser.add_argument("--hbm-bytes", type=float, default=None,
+                        help="device memory to plan against (default: the card's)")
     args = parser.parse_args(argv)
+    planner = ResidencyPlanner(args.hbm_bytes, device=args.device)
+    print("=" * 72)
+    print(f"1. Planner escalation for grok-1-314b / train_4k @ 256 devices "
+          f"({planner.capacity / GB:.1f} GB usable each)")
+    print("=" * 72)
+    plan = planner.plan(get_config("grok-1-314b"), get_shape("train_4k"), MeshConfig(False))
+    for d in plan.decisions:
+        print("  -", d)
+    print(f"  device: {plan.device_bytes / GB:.1f} GB  host: "
+          f"{plan.host_bytes / GB:.1f} GB  fits={plan.fits}")
+
+    print()
+    print("=" * 72)
+    print("2. KV host tier for an extreme decode working set")
+    print("=" * 72)
+    huge = ShapeConfig("huge", seq_len=524_288, global_batch=512, kind="decode")
+    plan = planner.plan(get_config("qwen2-72b"), huge, MeshConfig(False))
+    for d in plan.decisions:
+        print("  -", d)
+    print(f"  KV device fraction: {plan.kv_device_fraction:.2f}")
+
+    print()
     print("=" * 72)
     print("3. Paged decode over a block-table pool (hot pages on device)")
     print("=" * 72)
@@ -71,8 +102,7 @@ def main(argv=None) -> None:
     npages = res["k_pool"].shape[0]
     print(f"  paged attention over {npages} pages -> out {tuple(out.shape)}, "
           f"finite={bool(torch.isfinite(out).all())}")
-    print("  (sections 1, 2 and 4 wait for the port of the residency planner "
-          "and the UM simulator)")
+    print("  (section 4 waits for the port of the UM simulator)")
 
 
 if __name__ == "__main__":

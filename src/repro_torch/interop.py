@@ -81,3 +81,46 @@ def params_from_jax(tree, cfg, device) -> "torch.nn.Module":
                                  f"{a.dtype}, the port {tuple(p.shape)} {p.dtype}")
             p.copy_(a)
     return model
+
+
+def opt_state_from_jax(state, model) -> dict:
+    """The reference's optimizer state (``repro.optim.init_state`` /
+    ``apply_updates``: ``{"step", "leaves": {... {"master", "m", "v"[,
+    "m_scale", "v_scale"]}}}``) as the port's, keyed by ``model``'s
+    parameter names and on its device.
+
+    Leaves under ``layers`` are unstacked into the blocks as in
+    ``params_from_jax``: block i takes row i of each array, and of a
+    per-layer scale (L,); a scale shared by the stacked leaf, shape (),
+    goes to every block.  Every parameter must find its entry, or it
+    raises.
+    """
+    device = next(model.parameters()).device
+    src = to_torch(state, "cpu")
+    leaves = {}
+
+    def walk(node, path):
+        if "master" not in node:
+            for k, v in node.items():
+                walk(v, path + (k,))
+            return
+        if path[0] != "layers":
+            leaves[".".join(path)] = node
+            return
+        for i in range(node["master"].shape[0]):
+            leaves[".".join(("blocks", str(i)) + path[1:])] = {
+                k: (v if k.endswith("_scale") and v.ndim == 0 else v[i])
+                for k, v in node.items()}
+
+    walk(src["leaves"], ())
+    params = dict(model.named_parameters())
+    if set(leaves) != set(params):
+        raise ValueError(f"opt_state_from_jax: the trees differ: "
+                         f"{sorted(set(leaves) ^ set(params))}")
+    for name, s in leaves.items():
+        if s["master"].shape != params[name].shape:
+            raise ValueError(f"opt_state_from_jax: {name}: JAX has "
+                             f"{tuple(s['master'].shape)}, the port "
+                             f"{tuple(params[name].shape)}")
+        leaves[name] = {k: v.clone().to(device) for k, v in s.items()}
+    return {"step": src["step"].to(device), "leaves": leaves}

@@ -1,1 +1,1 @@
-"""Launchers: the serving entry point and its step builders."""
+"""Launchers: the serving and training entry points and their step builders."""

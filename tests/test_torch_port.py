@@ -70,6 +70,12 @@ def test_port_runs_with_jax_blocked():
         "for arch in ('qwen2-7b', 'rwkv6-3b', 'hymba-1.5b', 'mixtral-8x22b'):\n"
         "    toks = serve(arch, batch=2, prompt_len=4, gen=3, device='cpu')\n"
         "    assert toks.shape == (2, 3)\n"
+        "import tempfile\n"
+        "from repro_torch.launch.train import train\n"
+        "with tempfile.TemporaryDirectory() as d:\n"
+        "    _, report = train('starcoder2-3b', steps=3, batch=2, seq=8, ckpt_dir=d,\n"
+        "                      checkpoint_every=2, device='cpu')\n"
+        "assert report.steps_completed == 3 and len(report.losses) == 3\n"
         "loaded = [m for m in sys.modules if m == 'repro' or m.startswith('repro.')]\n"
         "assert not loaded, loaded\n"
         "print('ok')\n")
@@ -91,21 +97,35 @@ def test_numeric_defaults_to_the_card(app):
 
 
 def _no_card_entry_points():
-    from repro_torch.configs import ShapeConfig, get_config
+    from repro_torch.configs import MeshConfig, ShapeConfig, get_config
+    from repro_torch.core.advise import MemorySpace
     from repro_torch.core.placement import to_device_space
     from repro_torch.core.prefetch import PrefetchIterator
+    from repro_torch.core.residency import MemoryBudget, ResidencyPlan, ResidencyPlanner
     from repro_torch.data import prefetched
+    from repro_torch.examples import train_lm
     from repro_torch.launch.serve import serve
+    from repro_torch.launch.step import build_train_step
+    from repro_torch.launch.train import train
 
-    cfg = get_config("qwen2-7b").model.reduce()
+    arch = get_config("qwen2-7b")
+    cfg = arch.model.reduce()
+    host = ResidencyPlan(arch.name, "t", MeshConfig(), MemoryBudget(),
+                         opt_space=MemorySpace.HOST)
+    shape = ShapeConfig("t", 4, 1, "train")
     return {"serve": lambda: serve("qwen2-7b", batch=1, prompt_len=2, gen=1),
-            "prefetched": lambda: prefetched(cfg, ShapeConfig("t", 4, 1, "train")),
+            "prefetched": lambda: prefetched(cfg, shape),
             "PrefetchIterator": lambda: PrefetchIterator(iter([])),
-            "to_device_space": lambda: to_device_space(torch.ones(2))}
+            "to_device_space": lambda: to_device_space(torch.ones(2)),
+            "train": lambda: train("qwen2-7b", steps=1, batch=1, seq=4),
+            "build_train_step_host": lambda: build_train_step(arch, shape, None, host),
+            "ResidencyPlanner": lambda: ResidencyPlanner(),
+            "train_lm": lambda: train_lm.main(["--steps", "2"])}
 
 
 @pytest.mark.parametrize("name", ["serve", "prefetched", "PrefetchIterator",
-                                  "to_device_space"])
+                                  "to_device_space", "train", "build_train_step_host",
+                                  "ResidencyPlanner", "train_lm"])
 def test_movement_and_serve_default_to_the_card(name):
     """With no device given, the slice's entry points take the card, and
     raise without one instead of running on the CPU."""
