@@ -80,13 +80,32 @@
    dropped bias correction; on the reduced configs, the loss falling over
    30 steps, a restart from a checkpoint ending near an uninterrupted run,
    and a bf16 + fp32 + int8 checkpoint round trip bit for bit.
-8. Runs CG, Graph500 and the FFT convolutions at their default sizes, and
+8. The mesh path (``repro_torch.launch.mesh``, ``sharding``, ``step`` on a
+   mesh, ``runtime.compression``, ``launch.dryrun``): on the 2-layer cut of
+   7, one step in each sharding mode (2d, fsdp, zero1) on a (1, 1) mesh
+   over NCCL, parameters and state as DTensors, held against the unsharded
+   step (the loss and every updated parameter within 1e-6 of each tensor's
+   largest value; whether they are bit for bit is printed), with each
+   step's ms and its counted collectives; the int8 compressed all-reduce
+   over the world-1 group bit for bit against quantize + dequantize; with
+   two or more cards a 2d step on a (1, n) mesh, whose sharded products
+   round in another order: the loss within the bf16 gap of 7's checks,
+   each parameter within one Adam step (2 lr) and a bf16 ulp of the
+   unsharded step's, at most 1 % of them off, and the compressed mean
+   within one quantisation step of the plain mean.  The dry-run runs in a
+   subprocess on the fake backend, beside the card's phases: starcoder2-3b
+   / train_4k on the reference's 16 x 16 mesh (a roofline estimate for 256
+   H100s, not a measurement), then the cut on a 1 x 1 mesh, whose traced
+   peak must lie within 10 % of the 2d step's measured peak and whose
+   traced FLOPs must reach the analytic count, and the full depth, printed
+   beside 7's measured peak.
+9. Runs CG, Graph500 and the FFT convolutions at their default sizes, and
    the kernel timing rows of ``repro_torch.bench.lm_bench``.
 
 Prints ``{"serve_path": ...}``, ``{"family_serve": ...}``,
 ``{"model_checks": ...}``, ``{"movement_path": ...}``,
-``{"train_path": ...}`` and ``{"kernels": [...]}`` lines, then as its last
-line
+``{"train_path": ...}``, ``{"mesh_path": ...}`` and ``{"kernels": [...]}``
+lines, then as its last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 Exits non-zero, with no such line, if a check fails, or if there is no CUDA
 card or no port beside this script.
@@ -282,6 +301,41 @@ TRAIN_STATE_RTOL, TRAIN_EDGE = 1e-6, 1e-3
 # ends within TRAIN_RESTART_RTOL of an uninterrupted one, not bit for bit
 # (tests/test_torch_train.py holds that on the CPU).
 TRAIN_RESTART_RTOL = 1e-3
+# The mesh path (repro_torch.launch.mesh / sharding / step on a mesh): the
+# 2-layer cut of train_path's checks, one step in each sharding mode on a
+# (1, 1) mesh over NCCL, held against the unsharded step on the same weights
+# and batch: the loss and every updated parameter within MESH_STEP_TOL of
+# each tensor's largest value.  The dry-run (launch/dryrun.py) runs in a
+# subprocess on the fake backend, started early so that it overlaps the card's
+# phases: starcoder2-3b / train_4k on the 16 x 16 mesh, then the cut and the
+# full depth on a 1 x 1 mesh at B x S of train_path.  The cut's traced peak
+# must lie within MESH_PEAK_TOL of the sharded 2d step's measured
+# max_memory_allocated, both ways.  The full-depth trace's peak is printed
+# beside train_path's measured one from the same run.
+MESH_MODES = ("2d", "fsdp", "zero1")
+MESH_STEP_TOL, MESH_PEAK_TOL = 1e-6, 0.10
+MESH_DRYRUN_TIMEOUT = 900
+MESH_DRYRUN = r"""
+import dataclasses, json, sys, time
+import torch
+torch.set_num_threads(2)
+from repro_torch.configs import ShapeConfig, get_config
+from repro_torch.launch import dryrun
+outdir, batch, seq, cut = sys.argv[1], int(sys.argv[2]), int(sys.argv[3]), int(sys.argv[4])
+out = {}
+t = time.perf_counter()
+out["cell"] = dryrun.run_cell("starcoder2-3b", "train_4k", multi_pod=False, outdir=outdir)
+out["cell_s"] = time.perf_counter() - t
+arch = get_config("starcoder2-3b")
+shape = ShapeConfig("cut", seq, batch, "train")
+mesh = dryrun.dryrun_mesh((1, 1), ("data", "model"))
+for name, layers in (("cut", cut), ("full", arch.model.num_layers)):
+    a = dataclasses.replace(arch, model=dataclasses.replace(arch.model, num_layers=layers))
+    t = time.perf_counter()
+    out[name] = dryrun.trace_step(a, shape, mesh)
+    out[name + "_s"] = time.perf_counter() - t
+print(json.dumps(out))
+"""
 
 
 @contextlib.contextmanager
@@ -416,6 +470,100 @@ def wrong_v_tile(v, tile=FAULT_TILE):
     return bad
 
 
+def start_dryrun():
+    """The mesh path's dry-run, in a process of its own (the fake process
+    group must not live in this one)."""
+    import os
+
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    return subprocess.Popen(
+        [sys.executable, "-c", MESH_DRYRUN, str(ROOT / "artifacts" / "torch_dryrun"),
+         str(TRAIN_B), str(TRAIN_S), str(TRAIN_CUT_LAYERS)],
+        cwd=ROOT, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+
+
+def mesh_cut():
+    """train_path's 2-layer full-width cut of starcoder2-3b and its shape."""
+    import dataclasses
+
+    from repro_torch.configs import ShapeConfig, get_config
+
+    arch = get_config(TRAIN_MODEL)
+    arch = dataclasses.replace(arch, model=dataclasses.replace(
+        arch.model, num_layers=TRAIN_CUT_LAYERS))
+    return arch, ShapeConfig("cut", TRAIN_S, TRAIN_B, "train")
+
+
+def mesh_rank(rank: int, n: int, store: str, outdir: str, arch, shape, device: str) -> None:
+    """One rank of the (1, n) mesh (NCCL over n cards; gloo on the CPU for a
+    rehearsal): a 2d step of the cut, and the int8 compressed mean of its
+    gradients scaled by (1 + rank) against the plain mean; rank 0 saves
+    what it found."""
+    import itertools
+
+    import torch
+    import torch.distributed as dist
+    from torch.distributed import _functional_collectives as funcol
+
+    from repro_torch.data import DataConfig, synthetic_batches
+    from repro_torch.launch import step as stp
+    from repro_torch.launch.mesh import mesh_context
+    from repro_torch.models import init_params
+    from repro_torch.models import transformer as tf
+    from repro_torch.optim import adamw
+    from repro_torch.runtime import compressed_psum, quantize_int8
+
+    from torch.distributed.device_mesh import init_device_mesh
+
+    if device == "cuda":
+        torch.cuda.set_device(rank)
+        dev = torch.device("cuda", rank)
+        dist.init_process_group("nccl", store=dist.FileStore(store, n), rank=rank,
+                                world_size=n, device_id=dev)
+    else:
+        dev = torch.device(device)
+        dist.init_process_group("gloo", store=dist.FileStore(store, n), rank=rank, world_size=n)
+    mesh = init_device_mesh(dev.type, (1, n), mesh_dim_names=("data", "model"))
+    cfg = arch.model
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in next(itertools.islice(
+        synthetic_batches(cfg, shape, DataConfig(seed=2)), 1)).items()}
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(3), dev)
+    names, leaves = zip(*params.named_parameters())
+    grads = torch.autograd.grad(tf.loss_fn(params, batch, cfg, remat=arch.train.remat), leaves)
+    worst = 0.0
+    for g in grads:
+        mine = g.float() * (1 + rank)
+        mean, _ = compressed_psum(mine, dist.group.WORLD, torch.zeros_like(mine))
+        plain = funcol.all_reduce(mine, "sum", dist.group.WORLD) / n
+        scale = funcol.all_reduce(quantize_int8(mine)[1], "max", dist.group.WORLD)
+        worst = max(worst, ((mean - plain).abs().max() / scale).item())
+    del grads
+    opt = adamw.init_state(params, stp._adamw_cfg(arch, None))
+    params, opt = stp.place_train_state(arch, params, opt, mesh)
+    step = stp.build_train_step(arch, shape, mesh)
+    _, opt, m = step(params, opt, batch, TRAIN_CUT_AT)
+    with mesh_context(mesh):
+        full = {k: p.full_tensor().detach().cpu().clone() for k, p in params.named_parameters()}
+    # the step's ms (host clock around a synchronised step) and its collectives
+    from repro_torch.launch.analysis import TraceCounter
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    t = time.perf_counter()
+    step(params, opt, batch, TRAIN_CUT_AT + 1)
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    ms = (time.perf_counter() - t) * 1e3
+    counter = TraceCounter()
+    with counter:
+        step(params, opt, batch, TRAIN_CUT_AT + 2)
+    if rank == 0:
+        torch.save({"params": full, "loss": float(m["loss"]), "psum_steps": worst,
+                    "grad_norm": float(m["grad_norm"]), "lr": float(m["lr"]), "step_ms": ms,
+                    "collectives": counter.collectives().as_dict()},
+                   Path(outdir) / "mesh_rank0.pt")
+    dist.destroy_process_group()
+
+
 class Smoke:
     """Runs the phases and keeps what they found."""
 
@@ -431,6 +579,7 @@ class Smoke:
         self.failures: list[str] = []
         self.rows: list[dict] = []
         self.power_limit = "unknown"
+        self.train_full_peak = None  # train_path's full-depth max_memory_allocated
 
     # -- helpers ---------------------------------------------------------
 
@@ -2271,6 +2420,7 @@ class Smoke:
         seconds = {}
         t0 = time.perf_counter()
         full = self.train_full(tf)
+        self.train_full_peak = full["max_memory_allocated"]
         seconds["full"] = time.perf_counter() - t0
         # the cut's checks before the host plan, whose pinned blocks stay
         # cached in host memory, beside the CPU's fp64 reference
@@ -2303,6 +2453,259 @@ class Smoke:
             "full": full, "host_plan": host, "peak_drop": drop, "loss_fell": fell,
             "cut": cut, "drills": drills, "seconds": seconds,
             "power_limit": self.power_limit}}))
+
+    def mesh_path(self, init_params, dryrun_proc):
+        """The mesh layer on the card: (a) one step of each sharding mode on
+        a (1, 1) mesh against the unsharded step, (b) the int8 compressed
+        all-reduce over the world-1 group against quantize + dequantize,
+        (c) a (1, n) mesh with two or more cards, (d) the dry-run's records
+        and the traced peak against (a)'s measured one."""
+        import itertools
+
+        import torch.distributed as dist
+
+        from repro_torch.data import DataConfig, synthetic_batches
+        from repro_torch.launch import step as stp
+        from repro_torch.launch.analysis import TraceCounter
+        from repro_torch.launch.mesh import make_test_mesh
+        from repro_torch.models import transformer as tf
+        from repro_torch.models.common import set_sharding_mode
+        from repro_torch.optim import adamw
+        from repro_torch.runtime import compressed_psum, dequantize_int8, quantize_int8
+
+        torch = self.torch
+        t0 = time.perf_counter()
+        arch, shape = mesh_cut()
+        cfg = arch.model
+        print(f"== mesh path: {TRAIN_MODEL} cut to {TRAIN_CUT_LAYERS} layers, full width, "
+              f"B={TRAIN_B} S={TRAIN_S}, modes {MESH_MODES} on a (1, 1) mesh over NCCL")
+        self.free()
+        base = torch.cuda.memory_allocated()
+        batch = self.device_batch(next(itertools.islice(
+            synthetic_batches(cfg, shape, DataConfig(seed=2)), 1)))
+        mesh = make_test_mesh((1, 1), device_type=DEVICE)
+
+        def fresh():
+            params = init_params(cfg, torch.Generator(device=DEVICE).manual_seed(3), DEVICE)
+            return params, adamw.init_state(params, stp._adamw_cfg(arch, None))
+
+        def timed(fn):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = fn()
+            torch.cuda.synchronize()
+            return out, (time.perf_counter() - t) * 1e3
+
+        out = {"modes": {}, "power_limit": self.power_limit}
+        ref_2d = None
+        deterministic = torch.are_deterministic_algorithms_enabled()
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            for mode in MESH_MODES:
+                set_sharding_mode(mode)
+                try:
+                    # (a) the sharded step first, alone on the card, for its peak
+                    params, opt = fresh()
+                    params, opt = stp.place_train_state(arch, params, opt, mesh)
+                    step = stp.build_train_step(arch, shape, mesh)
+                    self.free()
+                    torch.cuda.reset_peak_memory_stats()
+                    (_, opt, m), first_ms = timed(lambda: step(params, opt, batch, TRAIN_CUT_AT))
+                    peak = torch.cuda.max_memory_allocated() - base
+                    got = {n: p.full_tensor().detach().clone() for n, p in params.named_parameters()}
+                    loss = float(m["loss"])
+                    _, ms = timed(lambda: step(params, opt, batch, TRAIN_CUT_AT + 1))
+                    counter = TraceCounter()
+                    with counter:
+                        step(params, opt, batch, TRAIN_CUT_AT + 2)
+                    torch.cuda.synchronize()
+                    del params, opt, step
+                    self.free()
+                    params, opt = fresh()
+                    step = stp.build_train_step(arch, shape, None, device=DEVICE)
+                    (_, opt, m2), _ = timed(lambda: step(params, opt, batch, TRAIN_CUT_AT))
+                    want = dict(params.named_parameters())
+                    loss_ref = float(m2["loss"])
+                    worst, bitwise = 0.0, loss == loss_ref
+                    for n, w in want.items():
+                        err = (got[n].float() - w.detach().float()).abs().max().item()
+                        worst = max(worst, err / max(w.detach().float().abs().max().item(), 1e-30))
+                        bitwise &= bool(torch.equal(got[n], w.detach()))
+                    if mode == "2d":  # (c)'s reference: after this one step
+                        ref_2d = ({n: w.detach().cpu().clone() for n, w in want.items()},
+                                  loss_ref, float(m2["grad_norm"]))
+                    _, plain_ms = timed(lambda: step(params, opt, batch, TRAIN_CUT_AT + 1))
+                    del params, opt, step, got, want
+                    self.free()
+                finally:
+                    set_sharding_mode("2d")
+                colls = counter.collectives().as_dict()
+                rec = {"loss": loss, "loss_unsharded": loss_ref, "bit_for_bit": bitwise,
+                       "worst_rel_err": worst, "first_step_ms": first_ms, "step_ms": ms,
+                       "unsharded_step_ms": plain_ms, "max_memory_allocated": peak,
+                       "collectives": colls}
+                out["modes"][mode] = rec
+                print(f"mesh {mode}: sharded step {ms:.1f} ms (first {first_ms:.1f} ms), "
+                      f"unsharded {plain_ms:.1f} ms, loss {loss!r} vs {loss_ref!r}, worst "
+                      f"|diff| / max|param| {worst:.3e}, bit for bit: {bitwise}, peak "
+                      f"{peak} bytes, collectives {colls['counts']}")
+                self.expect(f"a: {mode} step on the (1, 1) mesh == the unsharded step within "
+                            f"{MESH_STEP_TOL:g} of each tensor's largest value",
+                            abs(loss - loss_ref) <= MESH_STEP_TOL * abs(loss_ref)
+                            and worst <= MESH_STEP_TOL)
+        finally:
+            torch.use_deterministic_algorithms(deterministic)
+
+        # (b) compressed_psum over the world-1 group on the cut's gradients
+        params, _ = fresh()
+        names, leaves = zip(*params.named_parameters())
+        grads = torch.autograd.grad(tf.loss_fn(params, batch, cfg, remat=arch.train.remat),
+                                    leaves)
+        same = 0
+        for g in grads:
+            err = torch.zeros(g.shape, dtype=torch.float32, device=DEVICE)
+            for _ in range(2):  # the second round carries the first's error
+                mean, new = compressed_psum(g, mesh.get_group("data"), err)
+                q, scale = quantize_int8(g.float() + err)
+                want = dequantize_int8(q, scale)
+                same += bool(torch.equal(mean, want.to(g.dtype))
+                             and torch.equal(new, g.float() + err - want))
+                err = new
+        out["compressed_psum_bit_for_bit"] = f"{same}/{2 * len(grads)}"
+        self.expect(f"b: compressed_psum over the world-1 group == dequantize(quantize(g + e)) "
+                    f"and its error, bit for bit ({same} of {2 * len(grads)})",
+                    same == 2 * len(grads))
+        del params, grads, leaves
+        dist.destroy_process_group()
+        self.free()
+
+        # (c) a (1, n) mesh over NCCL with two or more cards
+        n = torch.cuda.device_count()
+        if n < 2:
+            print(f"mesh (1, n) over NCCL: not run ({n} CUDA device)")
+        else:
+            self.mesh_cards(n, ref_2d)
+
+        # (d) the dry-run
+        try:
+            stdout, stderr = dryrun_proc.communicate(timeout=MESH_DRYRUN_TIMEOUT)
+        finally:
+            if dryrun_proc.poll() is None:
+                dryrun_proc.kill()
+                dryrun_proc.wait()
+        self.expect("d: the dry-run process exits 0", dryrun_proc.returncode == 0)
+        if dryrun_proc.returncode != 0:
+            print(stderr[-3000:])
+            return
+        dry = json.loads(stdout.strip().splitlines()[-1])
+        cell, roof = dry["cell"], dry["cell"].get("roofline", {})
+        mem = cell.get("memory_analysis", {})
+        counts = cell.get("collectives_raw", {}).get("counts", {})
+        print(f"dry-run starcoder2-3b/train_4k on 16 x 16 (a roofline estimate for 256 H100s, "
+              f"not a measurement): {dry['cell_s']:.1f} s, status {cell['status']}, per-device "
+              f"{mem.get('argument_gb', 0) + mem.get('peak_extra_gb', 0):.2f} GB, per chip "
+              f"{roof.get('hlo_flops_per_chip', 0):.4e} FLOPs, {roof.get('hlo_bytes_per_chip', 0):.4e} "
+              f"bytes, {roof.get('collective_bytes_per_chip', 0):.4e} collective bytes; compute_s "
+              f"{roof.get('compute_s')}, memory_s {roof.get('memory_s')}, collective_s "
+              f"{roof.get('collective_s')}, bound {roof.get('bound')}, mfu_at_roofline "
+              f"{roof.get('mfu_at_roofline')}; collectives {counts}")
+        for site in cell.get("collectives_raw", {}).get("sites", [])[:6]:
+            print(f"d: 16 x 16 link bytes {site['link_bytes']:.4e} from {site['count']} "
+                  f"{site['kind']} ({site['op']}) of {site['operand']} at {site['site']}")
+        self.expect("d: the 16 x 16 dry-run cell is ok with its roofline",
+                    cell["status"] == "ok" and bool(roof))
+        self.expect("d: the 16 x 16 train step has an all-reduce or reduce-scatter",
+                    counts.get("all-reduce", 0) + counts.get("reduce-scatter", 0) > 0)
+        traced = (dry["cut"]["memory"]["argument_gb"] + dry["cut"]["memory"]["peak_extra_gb"]) * GB
+        measured = out["modes"]["2d"]["max_memory_allocated"]
+        ratio = traced / measured
+        print(f"d: the cut's traced peak {traced:.0f} bytes / the 2d step's measured "
+              f"max_memory_allocated {measured} = {ratio:.4f} (trace {dry['cut_s']:.1f} s)")
+        self.expect(f"d: the traced peak is within {MESH_PEAK_TOL:.0%} of the measured one",
+                    abs(ratio - 1) <= MESH_PEAK_TOL)
+        bound = self.train_bound(cfg, 0, 4)["bound_flops"]
+        flops_ratio = dry["cut"]["flops"] / sum(bound.values())
+        print(f"d: the cut's traced FLOPs {dry['cut']['flops']:.4e} / train_bound's analytic "
+              f"{sum(bound.values()):.4e} (remat's recompute not counted there) = "
+              f"{flops_ratio:.4f}")
+        self.expect("d: the traced FLOPs are at least the analytic count", flops_ratio >= 1)
+        full = dry["full"]["memory"]
+        full_gb = (full["argument_gb"] + full["peak_extra_gb"]) * GB / 1e9
+        print(f"d: the full-depth 1 x 1 trace's peak {full_gb:.2f} GB (trace "
+              f"{dry['full_s']:.1f} s) beside train_path's measured "
+              f"{self.train_full_peak / 1e9:.2f} GB")
+        seconds = time.perf_counter() - t0
+        print(f"mesh path: {seconds:.1f} s")
+        print(json.dumps({"mesh_path": {
+            **out, "dryrun": {"cell": {k: cell.get(k) for k in (
+                "status", "mesh", "chips", "compile_s", "memory_analysis",
+                "cost_analysis_raw", "collectives_raw", "roofline")},
+                "cell_s": dry["cell_s"], "cut_memory": dry["cut"]["memory"],
+                "cut_flops": dry["cut"]["flops"], "traced_over_measured_peak": ratio,
+                "traced_over_analytic_flops": flops_ratio, "full_depth_peak_gb": full_gb,
+                "cut_s": dry["cut_s"], "full_s": dry["full_s"]},
+            "seconds": seconds}}))
+
+    def mesh_cards(self, n: int, ref_2d):
+        """(c): the cut's 2d step on a (1, n) mesh over NCCL against the
+        unsharded step, and the compressed mean within one step of the
+        plain mean."""
+        import tempfile
+
+        import torch.multiprocessing as mp
+
+        torch = self.torch
+        with tempfile.TemporaryDirectory() as d:
+            ctx = mp.get_context("spawn")
+            arch, shape = mesh_cut()
+            procs = [ctx.Process(target=mesh_rank, args=(r, n, str(Path(d) / "store"), d,
+                                                         arch, shape, DEVICE))
+                     for r in range(n)]
+            for p in procs:
+                p.start()
+            for p in procs:
+                p.join(MESH_DRYRUN_TIMEOUT)
+            for p in procs:
+                if p.is_alive():
+                    p.kill()
+                    p.join()
+            self.expect(f"c: the {n} ranks exit 0", all(p.exitcode == 0 for p in procs))
+            if not all(p.exitcode == 0 for p in procs):
+                return
+            got = torch.load(Path(d) / "mesh_rank0.pt")
+        want, loss_ref, norm_ref = ref_2d
+        # sharded products sum in another order: the loss within the bf16
+        # gap of the training checks; a parameter may differ where Adam's
+        # first step follows a near-zero gradient's sign, by up to 2 lr
+        lr = got["lr"]
+        off = total = 0
+        worst = 0.0
+        for k, w in want.items():
+            diff = (got["params"][k].float() - w.float()).abs()
+            ulp = w.float().abs() * 2.0 ** -7   # at least one bf16 ulp of w
+            worst = max(worst, (diff - ulp).max().item())
+            off += int((diff > MESH_STEP_TOL * w.float().abs().max()).sum())
+            total += diff.numel()
+        loss_rel = abs(got["loss"] - loss_ref) / abs(loss_ref)
+        # the loss comes before any reduction and Adam's first step hardly
+        # sees the gradient's scale: the norm is what shows a reduction
+        # that sums where it should average, or reduces twice
+        norm_rel = abs(got["grad_norm"] - norm_ref) / abs(norm_ref)
+        print(f"mesh (1, {n}): step {got['step_ms']:.1f} ms, collectives "
+              f"{got['collectives']['counts']}, loss {got['loss']!r} vs {loss_ref!r} (rel "
+              f"{loss_rel:.3e}), grad norm {got['grad_norm']!r} vs {norm_ref!r} (rel "
+              f"{norm_rel:.3e}), {off} of {total} parameters off by more than "
+              f"{MESH_STEP_TOL:g} of their tensor's largest, each within {worst:.3e} + one bf16 "
+              f"ulp (2 lr = {2 * lr:.3e}); compressed mean off the plain mean by "
+              f"{got['psum_steps']:.3f} steps")
+        self.expect(f"c: the (1, {n}) mesh's loss within {TRAIN_BF16_LOSS_REL:g} of the "
+                    f"unsharded step's, parameters within 2 lr + one bf16 ulp, at most 1 % "
+                    f"beyond {MESH_STEP_TOL:g}",
+                    loss_rel <= TRAIN_BF16_LOSS_REL and worst <= 2 * lr and off <= total // 100)
+        self.expect(f"c: the (1, {n}) mesh's gradient norm within {TRAIN_BF16_GRAD_REL:g} of the "
+                    f"unsharded step's (the bf16 gradients' limit)", norm_rel <= TRAIN_BF16_GRAD_REL)
+        self.expect(f"c: the compressed mean is within one quantisation step of the plain mean",
+                    got["psum_steps"] <= 1.0)
 
     def second_device(self):
         """Each kernel launched on device 1 after device 0: the shared-memory
@@ -2405,15 +2808,22 @@ def main() -> int:
     t0 = time.perf_counter()
     smoke.header()
     smoke.kernel_checks()
-    smoke.attention_checks()
-    smoke.main_path()
-    smoke.paged_path(paged_decode)
-    smoke.flash_path(get_config, attention)
-    smoke.serve_path(tf, init_params, init_caches)
-    smoke.family_serve(tf, init_params, init_caches)
-    smoke.model_checks(tf, init_params)
-    smoke.movement_path(tf, init_params, tf.Block)
-    smoke.train_path(tf, init_params)
+    dryrun_proc = start_dryrun()
+    try:
+        smoke.attention_checks()
+        smoke.main_path()
+        smoke.paged_path(paged_decode)
+        smoke.flash_path(get_config, attention)
+        smoke.serve_path(tf, init_params, init_caches)
+        smoke.family_serve(tf, init_params, init_caches)
+        smoke.model_checks(tf, init_params)
+        smoke.movement_path(tf, init_params, tf.Block)
+        smoke.train_path(tf, init_params)
+        smoke.mesh_path(init_params, dryrun_proc)
+    finally:
+        if dryrun_proc.poll() is None:
+            dryrun_proc.kill()
+            dryrun_proc.wait()
     smoke.second_device()
     smoke.plain_apps()
     smoke.kernel_timing_rows(kernel_rows)

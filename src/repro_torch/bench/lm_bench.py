@@ -8,7 +8,7 @@ On a CUDA card each row is timed with CUDA events, for the kernel
 (variant ``cuda``) and for its plain PyTorch version (``torch_ref``).  On
 the CPU there is no kernel: the ``cuda`` rows say so and carry no time,
 and the plain versions are timed with the host clock.  ``arch_step_rows``
-waits for the port's models.
+is not ported yet.
 """
 from __future__ import annotations
 

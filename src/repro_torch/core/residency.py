@@ -18,8 +18,8 @@ the device's memory, applies the paper's advises in priority order:
 
 The emitted ``ResidencyPlan`` is consumed by ``launch/step.py``.  The budget
 accounts for the reference's production mesh only (``MeshConfig``: 16 x 16,
-or 2 x 16 x 16): the port has no device mesh yet, so it cannot plan for one
-card.  The capacity per device is the card's memory
+or 2 x 16 x 16), so it cannot plan for one card, though the port's steps
+run on a one-device ``DeviceMesh`` (``launch/mesh.py``).  The capacity per device is the card's memory
 (``torch.cuda.get_device_properties``) unless the caller gives
 ``hbm_bytes``; the planner states no size of its own.
 """

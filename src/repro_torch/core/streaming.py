@@ -14,6 +14,7 @@ from __future__ import annotations
 import functools
 
 import torch
+from torch.distributed.tensor import DTensor
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
@@ -27,10 +28,18 @@ _DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default,
 
 
 def _map_tensors(fn, tree):
+    """``fn`` on every tensor of ``tree``; a DTensor's local shard is moved
+    and rewrapped with the same mesh and placements."""
     if isinstance(tree, dict):
         return {k: _map_tensors(fn, v) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
         return type(tree)(_map_tensors(fn, v) for v in tree)
+    if isinstance(tree, DTensor):
+        out = fn(tree.to_local())
+        if not isinstance(out, torch.Tensor):
+            return out
+        return DTensor.from_local(out, tree.device_mesh, tree.placements,
+                                  run_check=False, shape=tree.shape, stride=tree.stride())
     return fn(tree) if isinstance(tree, torch.Tensor) else tree
 
 

@@ -1,1 +1,3 @@
-"""Launchers: the serving and training entry points and their step builders."""
+"""Launchers: the serving and training entry points, their step builders
+(on one device or a mesh), the mesh and its sharding rules, and the
+dry-run with its roofline analysis."""

@@ -1,24 +1,105 @@
-"""Step builders: the counterparts of ``repro.launch.step.build_train_step``,
-``build_prefill_step`` and ``build_serve_step`` (greedy argmax), for every
-family.
+"""Step builders: the counterparts of ``repro.launch.step``: train_step /
+prefill_step / serve_step for every family, on one device or on a mesh,
+plus ``input_specs()`` and the other abstract inputs (tensors on the
+``meta`` device, the counterparts of ``jax.ShapeDtypeStruct``) and
+``make_shardings``.
+
+The modality frontends are STUBS per the brief: ``[audio]`` gets token
+codebook grids shaped like EnCodec output; ``[vlm]`` gets precomputed patch
+embeddings + (t,h,w) M-RoPE position streams.
 
 The ResidencyPlan threads through the train step: remat policy, int8
 moments, and the optimizer state's placement (pinned host memory, fetched
-to the card for the update and offloaded after it).  The reference's
-ZeRO-1 / FSDP gradient sharding constraints are hints to its mesh; they
-wait for the port's mesh slice.
+to the card for the update and offloaded after it).
+
+On a mesh the parameters are DTensors placed by ``param_specs`` and the
+optimizer state by ``opt_specs`` (``place_train_state``); the batch is
+placed by ``batch_specs`` and the model runs under ``mesh_context``, where
+its ``shard_hint``s redistribute the activations.  After backward a
+gradient is ``Partial`` over the batch axes; it is reduced to its
+parameter's placement (2d, fsdp) or to its optimizer state's (zero1), the
+counterparts of the reference's gradient sharding constraints.
 """
 from __future__ import annotations
 
 import torch
+from torch.distributed.tensor import DTensor, distribute_tensor
 
 from repro_torch.configs.base import ArchConfig, ShapeConfig
 from repro_torch.core.advise import MemorySpace
 from repro_torch.core.residency import ResidencyPlan
 from repro_torch.core.streaming import fetch_params, offload_params
 from repro_torch.device import resolve
+from repro_torch.launch.mesh import mesh_context
+from repro_torch.launch.sharding import (
+    batch_specs,
+    cache_specs,
+    distribute_module,
+    distribute_opt_state,
+    opt_specs,
+    param_specs,
+)
 from repro_torch.models import transformer as tf
-from repro_torch.optim import AdamWConfig, apply_updates, clip_by_global_norm, warmup_cosine
+from repro_torch.models.common import get_param_mode, spec_placements
+from repro_torch.optim import (
+    AdamWConfig,
+    apply_updates,
+    clip_by_global_norm,
+    init_state,
+    warmup_cosine,
+)
+
+META = torch.device("meta")
+
+
+# ---------------------------------------------------------------------------
+# Abstract inputs (the dry-run's stand-ins: meta tensors, no allocation)
+# ---------------------------------------------------------------------------
+
+def input_specs(arch: ArchConfig, shape: ShapeConfig, device=META) -> dict:
+    cfg = arch.model
+    B, S = shape.global_batch, shape.seq_len
+    i32 = torch.int32
+    bf16 = torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
+
+    def sds(shape, dtype):
+        return torch.empty(shape, dtype=dtype, device=device)
+
+    if shape.kind in ("train", "prefill"):
+        if cfg.family == "audio":
+            batch = {
+                "tokens": sds((B, S, cfg.num_codebooks), i32),
+                "labels": sds((B, S, cfg.num_codebooks), i32),
+            }
+        elif cfg.family == "vlm":
+            batch = {
+                "embeds": sds((B, S, cfg.d_model), bf16),    # stub frontend
+                "labels": sds((B, S), i32),
+                "positions_thw": sds((B, S, 3), i32),
+            }
+        else:
+            batch = {"tokens": sds((B, S), i32), "labels": sds((B, S), i32)}
+        if shape.kind == "prefill":
+            batch.pop("labels", None)
+        return batch
+
+    # decode: KV cache of seq_len, one new token
+    if cfg.family == "audio":
+        return {"tokens": sds((B, cfg.num_codebooks), i32)}
+    return {"tokens": sds((B,), i32)}
+
+
+def abstract_caches(arch: ArchConfig, shape: ShapeConfig, device=META) -> dict:
+    return tf.init_caches(arch.model, shape.global_batch, shape.seq_len, device=device)
+
+
+def abstract_params(arch: ArchConfig, device=META) -> tf.Transformer:
+    return tf.Transformer(arch.model, device)
+
+
+def abstract_opt_state(arch: ArchConfig, plan: ResidencyPlan | None = None,
+                       device=META) -> dict:
+    return init_state(abstract_params(arch, device), _adamw_cfg(arch, plan))
 
 
 def _adamw_cfg(arch: ArchConfig, plan: ResidencyPlan | None) -> AdamWConfig:
@@ -30,6 +111,80 @@ def _adamw_cfg(arch: ArchConfig, plan: ResidencyPlan | None) -> AdamWConfig:
     )
 
 
+# ---------------------------------------------------------------------------
+# Shardings
+# ---------------------------------------------------------------------------
+
+def make_shardings(arch: ArchConfig, shape: ShapeConfig, mesh,
+                   plan: ResidencyPlan | None = None):
+    """DTensor placements for (params, opt_state, batch, caches), each a
+    dict keyed like the tree it places (opt_state: {"leaves": {name:
+    {key: placements}}}; the step counter stays a plain tensor).  The
+    plan's host placement is not a placement: the train step fetches and
+    offloads the state's local shards."""
+    cfg = arch.model
+    params = abstract_params(arch)
+    params_sh = {n: spec_placements(s, mesh) for n, s in param_specs(cfg, params).items()}
+
+    opt_sh = None
+    if shape.kind == "train":
+        ospecs = opt_specs(cfg, params)
+        abs_opt = abstract_opt_state(arch, plan)
+        opt_sh = {"leaves": {
+            n: {k: spec_placements(ospecs[n] if v.ndim else (), mesh) for k, v in leaf.items()}
+            for n, leaf in abs_opt["leaves"].items()}}
+
+    bspecs = batch_specs(cfg, mesh, shape.kind, shape.global_batch)
+    batch_sh = {k: spec_placements(v, mesh) for k, v in bspecs.items()}
+
+    caches_sh = None
+    if shape.kind == "decode":
+        cspecs = cache_specs(cfg, mesh, shape.global_batch)
+        caches_sh = {k: spec_placements(cspecs[k], mesh) for k in abstract_caches(arch, shape)}
+    return params_sh, opt_sh, batch_sh, caches_sh
+
+
+def place_train_state(arch: ArchConfig, params, opt_state, mesh, mode: str | None = None):
+    """Place a ``Transformer`` (in place) and its ``init_state`` state on
+    ``mesh``: parameters by ``param_specs``, masters and moments by
+    ``opt_specs``.  Returns (params, opt_state)."""
+    cfg = arch.model
+    state = distribute_opt_state(opt_state, cfg, params, mesh, mode)
+    distribute_module(params, param_specs(cfg, params, mode), mesh)
+    return params, state
+
+
+def place_batch(arch: ArchConfig, batch: dict, mesh, kind: str) -> dict:
+    """The global batch (the same plain tensors on every rank) placed by
+    ``batch_specs``."""
+    specs = batch_specs(arch.model, mesh, kind, next(iter(batch.values())).shape[0])
+    return {k: v if isinstance(v, DTensor) else
+            distribute_tensor(v, mesh, spec_placements(specs.get(k, ()), mesh))
+            for k, v in batch.items()}
+
+
+def place_caches(arch: ArchConfig, caches: dict, mesh) -> dict:
+    """Decode caches (stacked, leading L) placed by ``cache_specs``."""
+    specs = cache_specs(arch.model, mesh, next(iter(caches.values())).shape[1])
+    return {k: distribute_tensor(v, mesh, spec_placements(specs[k], mesh))
+            for k, v in caches.items()}
+
+
+def _reduce_grad(g, want):
+    """The reduction of a gradient to ``want``: a ``Partial`` becomes a sum
+    over its mesh dims (all-reduce or reduce-scatter)."""
+    return g.redistribute(g.device_mesh, want)
+
+
+def _scalar(x):
+    """A 0-d result as a plain tensor (a DTensor's whole value)."""
+    return x.full_tensor() if isinstance(x, DTensor) else x
+
+
+# ---------------------------------------------------------------------------
+# Steps
+# ---------------------------------------------------------------------------
+
 def build_train_step(arch: ArchConfig, shape: ShapeConfig, mesh=None,
                      plan: ResidencyPlan | None = None, *, total_steps: int = 10_000,
                      device=None):
@@ -39,23 +194,38 @@ def build_train_step(arch: ArchConfig, shape: ShapeConfig, mesh=None,
     one).  The parameters are updated in place; with the plan's optimizer
     on the host, ``opt_state`` comes in and goes out in pinned memory.
 
+    With a ``mesh``, params and state are placed by ``place_train_state``
+    and ``batch`` is the global batch (plain tensors, the same on every
+    rank), which each microbatch takes by ``batch_specs``.
+
     Gradients: with one microbatch in the parameters' dtype, as the
     reference's; with ``microbatches`` > 1 summed over the microbatches in
     fp32 buffers and divided by their number.  Metrics: ``loss``,
-    ``grad_norm`` (before clipping) and ``lr``, as 0-d tensors.
+    ``grad_norm`` (before clipping) and ``lr``, as plain 0-d tensors.
     """
-    if mesh is not None:
-        raise NotImplementedError("build_train_step: the port has no device mesh yet")
     cfg = arch.model
-    dev = resolve(device)
+    dev = resolve(device if mesh is None else mesh.device_type)
     acfg = _adamw_cfg(arch, plan)
     remat = plan.remat if plan is not None else arch.train.remat
     micro = max(1, min(arch.train.microbatches, shape.global_batch))
     opt_on_host = plan is not None and plan.opt_space is MemorySpace.HOST
+    grad_specs = None
+    if mesh is not None:
+        # ZeRO-1: gradients reduce-scatter into the optimizer's (data-added)
+        # sharding; otherwise into the parameters' own
+        specs = (opt_specs if get_param_mode() == "zero1" else param_specs)(
+            cfg, abstract_params(arch))
+        grad_specs = {n: spec_placements(s, mesh) for n, s in specs.items()}
 
-    def grads_of(params, leaves, mb):
+    def grads_of(params, names, leaves, mb):
         loss = tf.loss_fn(params, mb, cfg, remat=remat)
-        return loss.detach(), torch.autograd.grad(loss, leaves)
+        grads = torch.autograd.grad(loss, leaves)
+        if grad_specs is not None:
+            grads = [_reduce_grad(g, grad_specs[n]) for n, g in zip(names, grads)]
+        return loss.detach(), grads
+
+    def place(mb):
+        return mb if mesh is None else place_batch(arch, mb, mesh, "train")
 
     def train_step(params, opt_state, batch, step):
         lr = warmup_cosine(step, peak_lr=arch.train.learning_rate,
@@ -63,16 +233,19 @@ def build_train_step(arch: ArchConfig, shape: ShapeConfig, mesh=None,
                            total_steps=total_steps)
         names, leaves = zip(*params.named_parameters())
         if micro == 1:
-            loss, grads = grads_of(params, leaves, batch)
+            loss, grads = grads_of(params, names, leaves, place(batch))
         else:
-            acc = [torch.zeros(p.shape, dtype=torch.float32, device=p.device) for p in leaves]
+            acc = None
             loss = 0.0
             for i in range(micro):
                 mb = {k: v.reshape((micro, v.shape[0] // micro) + v.shape[1:])[i]
                       for k, v in batch.items()}
-                l, g = grads_of(params, leaves, mb)
-                for a, x in zip(acc, g):
-                    a += x
+                l, g = grads_of(params, names, leaves, place(mb))
+                if acc is None:  # fp32 buffers: 0 + g, exactly g
+                    acc = [x.to(torch.float32) for x in g]
+                else:
+                    for a, x in zip(acc, g):
+                        a += x
                 loss = loss + l
                 del g
             grads = [a / micro for a in acc]
@@ -84,27 +257,55 @@ def build_train_step(arch: ArchConfig, shape: ShapeConfig, mesh=None,
         params, opt_state = apply_updates(params, grads, opt_state, acfg, lr)
         if opt_on_host:
             opt_state = offload_params(opt_state, dev)     # card -> host
-        return params, opt_state, {"loss": loss, "grad_norm": gnorm, "lr": lr}
+        return params, opt_state, {"loss": _scalar(loss), "grad_norm": _scalar(gnorm),
+                                   "lr": lr}
 
-    return train_step
+    if mesh is None:
+        return train_step
+
+    def sharded_train_step(params, opt_state, batch, step):
+        with mesh_context(mesh):
+            return train_step(params, opt_state, batch, step)
+
+    return sharded_train_step
 
 
-def build_prefill_step(arch: ArchConfig):
+def build_prefill_step(arch: ArchConfig, mesh=None):
+    """prefill_step(params, batch) -> (next tokens, caches); on a mesh the
+    batch is placed by ``batch_specs`` and the tokens come back whole."""
     cfg = arch.model
 
     def prefill_step(params, batch):
-        logits, caches = tf.prefill(params, batch, cfg)
-        return logits.argmax(dim=-1), caches
+        if mesh is None:
+            logits, caches = tf.prefill(params, batch, cfg)
+            return logits.argmax(dim=-1), caches
+        with mesh_context(mesh):
+            logits, caches = tf.prefill(params, place_batch(arch, batch, mesh, "prefill"), cfg)
+            return _scalar(logits).argmax(dim=-1), caches
 
     return prefill_step
 
 
-def build_serve_step(arch: ArchConfig):
-    """One-token decode step: greedy sample + cache update (in place)."""
+def build_serve_step(arch: ArchConfig, mesh=None):
+    """One-token decode step: greedy sample + cache update (in place).  On
+    a mesh the caches are placed by ``place_caches``, the tokens by
+    ``batch_specs``, and the sampled tokens come back whole."""
     cfg = arch.model
 
     def serve_step(params, batch, caches, cache_len):
-        logits, caches = tf.decode_step(params, batch, caches, cache_len, cfg)
-        return logits.argmax(dim=-1), caches
+        if mesh is None:
+            logits, caches = tf.decode_step(params, batch, caches, cache_len, cfg)
+            return logits.argmax(dim=-1), caches
+        with mesh_context(mesh):
+            logits, caches = tf.decode_step(params, place_batch(arch, batch, mesh, "decode"),
+                                            caches, cache_len, cfg)
+            return _scalar(logits).argmax(dim=-1), caches
 
     return serve_step
+
+
+__all__ = [
+    "abstract_caches", "abstract_opt_state", "abstract_params",
+    "build_prefill_step", "build_serve_step", "build_train_step", "input_specs",
+    "make_shardings", "place_batch", "place_caches", "place_train_state",
+]

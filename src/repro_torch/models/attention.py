@@ -9,8 +9,8 @@ probabilities are cast to ``v.dtype`` before the PV product.
 
 Decode is split-KV (flash-decoding style): ``decode_attention_partial``
 gives a shard's (numerator, denominator, running max), and
-``combine_decode_partials`` merges them.  The merge over a mesh axis waits
-for the port's ``torch.distributed`` slice.
+``combine_decode_partials`` merges them, across the ranks of a mesh axis
+when each rank holds one shard of the cache.
 """
 from __future__ import annotations
 
@@ -18,7 +18,14 @@ import math
 
 import torch
 
-from repro_torch.models.common import get_sharding_mode
+from torch.distributed import _functional_collectives as funcol
+
+from repro_torch.models.common import (
+    current_mesh,
+    get_sharding_mode,
+    merge_dims,
+    split_ready,
+)
 
 NEG_INF = -1e30
 
@@ -43,22 +50,28 @@ def causal_mask(q_len: int, kv_len: int, *, window: int | None = None,
 
 
 def _attention_dense(q, k, v, *, causal, window, q_offset, mask, scale):
-    """Grouped-GQA dense attention with no repeat_kv copy: scores are
-    computed per kv-head group, (B, Hkv, G, Sq, Skv)."""
+    """Grouped-GQA dense attention with no repeat_kv copy: scores per
+    kv-head group as batched products laid out (B*Hkv, Sq*G, .), so that a
+    sequence shard of q (or of its gradient) on a mesh stays the outer dim
+    of each group that is flattened (see ``common.linear``).  ``mask``
+    broadcasts against the reference's (B, Hkv, G, Sq, Skv) scores."""
     b, sq, hq, dh = q.shape
-    hkv = k.shape[2]
+    skv, hkv = k.shape[1], k.shape[2]
     g = hq // hkv
-    qg = q.reshape(b, sq, hkv, g, dh)
-    s = torch.einsum("bqkgd,bskd->bkgqs", qg, k).float() * scale
+    qt = split_ready(q, 2, hkv).reshape(b, sq, hkv, g, dh).permute(0, 2, 1, 3, 4)
+    kt = k.permute(0, 2, 3, 1).reshape(b * hkv, dh, skv)
+    s = torch.bmm(qt.reshape(b * hkv, sq * g, dh), kt).view(b, hkv, sq, g, skv)
+    s = s.float() * scale
     if causal:
-        m = causal_mask(sq, k.shape[1], window=window, q_offset=q_offset,
-                        device=q.device)
-        s = torch.where(m[None, None, None], s, NEG_INF)
+        m = causal_mask(sq, skv, window=window, q_offset=q_offset, device=q.device)
+        s = torch.where(m[None, None, :, None, :], s, NEG_INF)
     if mask is not None:
-        s = torch.where(mask, s, NEG_INF)
+        s = torch.where(mask.reshape((1,) * (5 - mask.ndim) + mask.shape).transpose(2, 3),
+                        s, NEG_INF)
     p = torch.softmax(s, dim=-1).to(q.dtype)
-    o = torch.einsum("bkgqs,bskd->bqkgd", p, v)
-    return o.reshape(b, sq, hq, dh)
+    vt = v.permute(0, 2, 1, 3).reshape(b * hkv, skv, dh)
+    o = torch.bmm(p.reshape(b * hkv, sq * g, skv), vt).view(b, hkv, sq, g, dh)
+    return merge_dims(o.permute(0, 2, 1, 3, 4), (b, sq, hq, dh), 2, hkv)
 
 
 FSDP_Q_CHUNK = 512  # query rows per block under pure-FSDP (seq unsharded)
@@ -116,7 +129,7 @@ def attention_flash(q, k, v, *, causal: bool = True, window: int | None = None,
     scale = softmax_scale if softmax_scale is not None else 1.0 / math.sqrt(dh)
     block = min(block, skv)
     nb = -(-skv // block)
-    qg = q.reshape(b, sq, hkv, g, dh).float()
+    qg = split_ready(q, 2, hkv).reshape(b, sq, hkv, g, dh).float()
     qpos = q_offset + torch.arange(sq, device=q.device)
 
     m = torch.full((b, hkv, g, sq), NEG_INF, dtype=torch.float32, device=q.device)
@@ -172,13 +185,21 @@ def decode_attention_partial(q, k, v, valid_mask, softmax_scale: float | None = 
 
 
 def combine_decode_partials(num, denom, m, axis_name: str | None):
-    """Combine split-KV partials; with ``axis_name=None`` the partials are
-    the whole cache's.  A combine over a mesh axis (``pmax``/``psum``)
-    waits for the port's ``torch.distributed`` slice."""
+    """Combine split-KV partials (flash-decoding combine).  With
+    ``axis_name=None`` the partials are the whole cache's; with the name of
+    an axis of the context mesh (``launch.mesh.mesh_context``) they are this
+    rank's shard's, merged over that axis's ranks: the MAX of ``m``, each
+    shard's correction exp(m - max), then the SUM of ``num`` and ``denom``."""
     if axis_name is not None:
-        raise NotImplementedError(
-            "combine_decode_partials over a mesh axis needs the port's "
-            "torch.distributed slice")
+        mesh = current_mesh()
+        if mesh is None:
+            raise ValueError(f"combine_decode_partials over {axis_name!r} needs a mesh "
+                             "context (launch.mesh.mesh_context)")
+        group = mesh.get_group(axis_name)
+        g_m = funcol.all_reduce(m, "max", group)
+        corr = torch.exp(m - g_m)
+        num = funcol.all_reduce(num * corr[..., None], "sum", group)
+        denom = funcol.all_reduce(denom * corr, "sum", group)
     return num / denom[..., None].clamp_min(1e-20)
 
 

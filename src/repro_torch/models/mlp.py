@@ -8,7 +8,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from repro_torch.models.common import ACTIVATIONS, _normal, gelu
+from repro_torch.models.common import ACTIVATIONS, _normal, gelu, linear
 
 
 class MLP(nn.Module):
@@ -31,7 +31,7 @@ class MLP(nn.Module):
 def mlp(params, x, activation: str):
     if activation in ("swiglu", "geglu"):
         act = F.silu if activation == "swiglu" else gelu
-        h = act(x @ params.w_gate) * (x @ params.w_up)
+        h = act(linear(x, params.w_gate)) * linear(x, params.w_up)
     else:
-        h = ACTIVATIONS[activation](x @ params.w_up)
-    return h @ params.w_down
+        h = ACTIVATIONS[activation](linear(x, params.w_up))
+    return linear(h, params.w_down)

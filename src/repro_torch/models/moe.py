@@ -24,7 +24,18 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from repro_torch.models.common import _weight, gelu, squared_relu
+from repro_torch.models.common import (
+    BATCH,
+    UNC,
+    _weight,
+    gelu,
+    get_sharding_mode,
+    replicate,
+    seq_sharded,
+    shard_hint,
+    squared_relu,
+    whole_dim,
+)
 
 MOE_GROUP_SIZE = 512
 CAPACITY_FACTOR = 1.25  # GShard train default; decode passes 2.0
@@ -98,24 +109,35 @@ def moe(p, x, *, top_k: int, activation: str,
         capacity_factor: float = CAPACITY_FACTOR, group_size: int | None = None):
     """x: (B,S,d) -> (y (B,S,d), aux loss)."""
     e = p.w_up.shape[0]
-    x_flat, capacity = _groups(x, group_size, top_k, capacity_factor, e)
+    # groups cut across the sequence: a sequence shard is gathered first
+    x_flat, capacity = _groups(whole_dim(x, 1) if seq_sharded(x) else x, group_size, top_k,
+                               capacity_factor, e)
+    # groups shard over the DP axes; expert hidden shards over model (TP
+    # inside the expert — E < model-axis size, DESIGN.md §6)
+    x_flat = shard_hint(x_flat, (BATCH, UNC, UNC))
     g, s, d = x_flat.shape
     gate, expert, slot, keep, aux = _routing(x_flat, p.router, top_k, capacity, e)
     rows = e * g * capacity
     row = (expert * g + torch.arange(g, device=x.device)[:, None, None]) * capacity + slot
-    # dispatch: one copy per choice; a dropped pair lands in a spare last row
-    buf = x.new_zeros((rows + 1, d))
-    tokens = x_flat.reshape(g * s, d)
+    # dispatch: one copy per choice; a dropped pair lands in a spare last row.
+    # On a mesh the index dispatch and combine run on whole (replicated)
+    # tensors, as GSPMD all-gathers for them: DTensor has no sharded
+    # strategy for index_copy_ or for indexing by a tensor
+    tokens = replicate(x_flat).reshape(g * s, d)
+    row, keep = replicate(row), replicate(keep)
+    buf = tokens.new_zeros((rows + 1, d))
     for j in range(top_k):
         buf.index_copy_(0, torch.where(keep[..., j], row[..., j], rows).reshape(-1), tokens)
-    xe = buf[:rows].view(e, g * capacity, d)
+    # the (E, G*C) rows are group-major within an expert: G*C shards like G
+    xe = shard_hint(buf[:rows].view(e, g * capacity, d), (None, BATCH, UNC))
     if activation in ("swiglu", "geglu"):
         act = F.silu if activation == "swiglu" else gelu
         h = act(torch.bmm(xe, p.w_gate)) * torch.bmm(xe, p.w_up)
     else:
         act = gelu if activation == "gelu" else squared_relu
         h = act(torch.bmm(xe, p.w_up))
-    out = torch.bmm(h, p.w_down).view(rows, d)
+    h = shard_hint(h, (None, BATCH, "model" if get_sharding_mode() == "2d" else None))
+    out = replicate(shard_hint(torch.bmm(h, p.w_down), (None, BATCH, UNC))).view(rows, d)
     # combine: each token's kept choices, weighted by their gates in x.dtype
     combine = (gate * keep).to(x.dtype)
     y = torch.einsum("gsk,gskd->gsd", combine, out[torch.where(keep, row, 0)])

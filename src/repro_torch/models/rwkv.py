@@ -23,7 +23,15 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from repro_torch.models.common import Norm, _const, _weight, layernorm, squared_relu
+from repro_torch.models.common import (
+    Norm,
+    _const,
+    _weight,
+    layernorm,
+    merge_dims,
+    split_ready,
+    squared_relu,
+)
 
 DECAY_LORA = 64
 WKV_CHUNK = 64  # the reference's checkpoint granularity: the port's loop has none
@@ -125,16 +133,16 @@ def time_mix(tm, x, cfg, *, shift_state=None, wkv_state=None):
     xg = _token_shift(x, shifted, tm.mu_g)
     xw = _token_shift(x, shifted, tm.mu_w)
 
-    r = (xr @ tm.w_r).reshape(B, S, h, n)
-    k = (xk @ tm.w_k).reshape(B, S, h, n)
-    v = (xv @ tm.w_v).reshape(B, S, h, n)
+    r = split_ready(xr @ tm.w_r, -1, h).reshape(B, S, h, n)
+    k = split_ready(xk @ tm.w_k, -1, h).reshape(B, S, h, n)
+    v = split_ready(xv @ tm.w_v, -1, h).reshape(B, S, h, n)
     g = F.silu(xg @ tm.w_g)
-    w = data_dependent_decay(xw, tm).reshape(B, S, h, n)
+    w = split_ready(data_dependent_decay(xw, tm), -1, h).reshape(B, S, h, n)
 
     if wkv_state is None:
         wkv_state = torch.zeros((B, h, n, n), dtype=torch.float32, device=x.device)
     y, wkv_state = wkv6_scan(r, k, v, w, tm.u, wkv_state)
-    y = y.reshape(B, S, d).to(x.dtype)
+    y = merge_dims(y, (B, S, d), -1, h).to(x.dtype)
     y = layernorm(y, tm.ln_x.scale, tm.ln_x.bias)  # ~group norm
     y = (y * g) @ tm.w_o
     return y, (x[:, -1], wkv_state)

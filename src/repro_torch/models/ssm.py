@@ -23,7 +23,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from repro_torch.models.common import _const, _weight
+from repro_torch.models.common import BATCH, _const, _weight, linear, shard_hint
 
 CONV_K = 4
 SSM_CHUNK = 256  # the reference's chunk: the port's loop has none
@@ -106,7 +106,11 @@ def mamba(p, x, state=None):
     x takes the conv state but scans from a zero ssm state.  Returns
     (y (B,S,d_model), (conv_state, ssm_state)).
     """
-    xin, z = (x @ p.in_proj).chunk(2, dim=-1)
+    xin, z = linear(x, p.in_proj).chunk(2, dim=-1)
+    # channel-TP for the recurrence: d_inner over model, the sequence whole
+    if x.shape[1] > 1:
+        xin = shard_hint(xin, (BATCH, None, "model"))
+        z = shard_hint(z, (BATCH, None, "model"))
     conv_state, ssm_state = (None, None) if state is None else state
     xc, conv_state = _causal_conv(xin, p.conv_w, p.conv_b, conv_state)
     xc = F.silu(xc)

@@ -29,6 +29,7 @@ from __future__ import annotations
 
 import torch
 from torch import nn
+from torch.distributed.tensor import DTensor
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
@@ -39,6 +40,9 @@ from repro_torch.models import moe as moe_lib
 from repro_torch.models import rwkv as rwkv_lib
 from repro_torch.models import ssm as ssm_lib
 from repro_torch.models.common import (
+    BATCH,
+    SEQ,
+    UNC,
     Norm,
     _weight,
     apply_mrope,
@@ -47,6 +51,11 @@ from repro_torch.models.common import (
     cross_entropy_loss,
     embed_tokens,
     get_sharding_mode,
+    linear,
+    merge_dims,
+    shard_hint,
+    split_ready,
+    target_logit,
     text_mrope_positions,
     unembed,
 )
@@ -55,6 +64,15 @@ from repro_torch.models.mlp import MLP, mlp
 
 def _dtype(cfg: ModelConfig) -> torch.dtype:
     return torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
+
+
+def residual_hint(cfg: ModelConfig) -> tuple:
+    """Residual-stream sharding between layers (DESIGN.md §6):
+    sequence parallelism over the model axis for attention families;
+    channel TP for rwkv (the time recurrence cannot scan a sharded seq)."""
+    if cfg.family == "ssm":
+        return (BATCH, UNC, SEQ)
+    return (BATCH, SEQ, UNC)
 
 
 # ---------------------------------------------------------------------------
@@ -140,14 +158,14 @@ def init_params(cfg: ModelConfig, generator: torch.Generator, device=None) -> Tr
 
 def _project_qkv(p, x, cfg: ModelConfig):
     B, S, _ = x.shape
-    q = x @ p.wq
-    k = x @ p.wk
-    v = x @ p.wv
+    q = linear(x, p.wq)
+    k = linear(x, p.wk)
+    v = linear(x, p.wv)
     if cfg.qkv_bias:
         q, k, v = q + p.bq, k + p.bk, v + p.bv
-    q = q.reshape(B, S, cfg.num_heads, cfg.head_dim)
-    k = k.reshape(B, S, cfg.num_kv_heads, cfg.head_dim)
-    v = v.reshape(B, S, cfg.num_kv_heads, cfg.head_dim)
+    q = split_ready(q, -1, cfg.num_heads).reshape(B, S, cfg.num_heads, cfg.head_dim)
+    k = split_ready(k, -1, cfg.num_kv_heads).reshape(B, S, cfg.num_kv_heads, cfg.head_dim)
+    v = split_ready(v, -1, cfg.num_kv_heads).reshape(B, S, cfg.num_kv_heads, cfg.head_dim)
     return q, k, v
 
 
@@ -164,11 +182,16 @@ def attn_sublayer(p, x, cfg: ModelConfig, positions, *, return_kv=False,
     B, S, _ = x.shape
     q, k, v = _project_qkv(p, x, cfg)
     q, k = _rotate(q, k, positions, cfg)
+    # SP attention: q stays sequence-sharded; K/V replicate along seq so the
+    # score matrix shards on the query dim for any head count
+    q = shard_hint(q, (BATCH, SEQ, UNC, UNC))
+    k = shard_hint(k, (BATCH, None, UNC, UNC))
+    v = shard_hint(v, (BATCH, None, UNC, UNC))
     if mode == "prefill" and S * k.shape[1] > 4096 * 4096:
         out = attn_lib.attention_flash(q, k, v, causal=True, window=cfg.sliding_window)
     else:
         out = attn_lib.attention(q, k, v, causal=True, window=cfg.sliding_window)
-    out = out.reshape(B, S, -1) @ p.wo
+    out = linear(merge_dims(out, (B, S, -1), -1, cfg.num_heads), p.wo)
     if return_kv:
         return out, (k, v)
     return out
@@ -207,15 +230,17 @@ def backbone(params, x, cfg: ModelConfig, positions, *, remat: str = "none"):
     layer runs under ``checkpoint_layer(..., remat)``.  Returns the normed
     hidden states and the MoE aux loss summed over the layers."""
 
+    hint = residual_hint(cfg)
+    x = shard_hint(x, hint)
     if cfg.family == "ssm":
         def body(carry, blk):
             h, aux = carry
-            return rwkv_lib.rwkv_block(blk, h, cfg)[0], aux
+            return shard_hint(rwkv_lib.rwkv_block(blk, h, cfg)[0], hint), aux
     else:
         def body(carry, blk):
             h, aux = carry
             h, a = transformer_block(blk, h, cfg, positions)
-            return h, aux + a
+            return shard_hint(h, hint), aux + a
 
     body = checkpoint_layer(body, remat)
     carry = (x, torch.zeros((), dtype=torch.float32, device=x.device))
@@ -250,7 +275,12 @@ def logits_fn(params, x, cfg: ModelConfig):
     if cfg.padded_vocab != cfg.vocab_size:  # mask the padding columns
         pad = torch.arange(cfg.padded_vocab, device=x.device) >= cfg.vocab_size
         logits = logits.masked_fill(pad, -1e30)
-    return logits
+    # vocab-parallel logits: keep V sharded over model through the loss
+    # (under pure-FSDP the model axis belongs to the batch — V unsharded)
+    vshard = "model" if get_sharding_mode() == "2d" else None
+    if logits.ndim == 4:  # (B,S,K,V) multi-codebook
+        return shard_hint(logits, (BATCH, UNC, None, vshard))
+    return shard_hint(logits, (BATCH, UNC, vshard))
 
 
 CE_CHUNK = 512  # seq positions per chunked-CE block (pure-FSDP path)
@@ -265,7 +295,7 @@ def _chunked_ce(params, x, labels, cfg: ModelConfig):
     def chunk_nll(xc, lc):
         logits = logits_fn(params, xc, cfg).float()
         lse = torch.logsumexp(logits, dim=-1)
-        tgt = logits.gather(-1, lc.long().clamp_min(0)[..., None])[..., 0]
+        tgt = target_logit(logits, lc.long())
         mask = (lc != -1).float()
         return ((lse - tgt) * mask).sum(), mask.sum()
 
@@ -326,6 +356,17 @@ def init_caches(cfg: ModelConfig, batch: int, max_seq: int, device=None) -> dict
     return caches
 
 
+def _write_row(cache, row, slot: int) -> None:
+    """cache[:, slot] = row, in place.  On a DTensor the row goes in through
+    a functional update copied back whole: indexing a sharded dim gives a
+    redistributed copy, not a view, and a write into it would be lost."""
+    if isinstance(cache, DTensor):
+        cache.copy_(cache.slice_scatter(row[:, None].to(cache.dtype), dim=1,
+                                        start=slot, end=slot + 1))
+    else:
+        cache[:, slot] = row
+
+
 def _decode_attn(p, h, cfg: ModelConfig, k_cache, v_cache, cache_len: int, positions):
     """One-token attention against a (possibly ring-buffered) cache,
     k_cache/v_cache (B,Scache,Hkv,Dh), whose row at the new token's slot is
@@ -336,8 +377,11 @@ def _decode_attn(p, h, cfg: ModelConfig, k_cache, v_cache, cache_len: int, posit
     S_cache = k_cache.shape[1]
     ring = cfg.sliding_window is not None and S_cache == cfg.sliding_window
     slot = cache_len % S_cache if ring else min(cache_len, S_cache - 1)
-    k_cache[:, slot] = k_new[:, 0]
-    v_cache[:, slot] = v_new[:, 0]
+    _write_row(k_cache, k_new[:, 0], slot)
+    _write_row(v_cache, v_new[:, 0], slot)
+    # keep the cache SEQUENCE-sharded through the attention math (split-KV)
+    k_cache = shard_hint(k_cache, (BATCH, "model", UNC, UNC))
+    v_cache = shard_hint(v_cache, (BATCH, "model", UNC, UNC))
     n_valid = cache_len + 1
     if ring:
         valid = (torch.arange(S_cache, device=h.device)[None, :] < n_valid) | (n_valid >= S_cache)
@@ -346,7 +390,7 @@ def _decode_attn(p, h, cfg: ModelConfig, k_cache, v_cache, cache_len: int, posit
         out = attn_lib.combine_decode_partials(num, den, m, None).to(h.dtype)
     else:
         out = attn_lib.decode_attention(q[:, 0], k_cache, v_cache, n_valid)
-    return out.reshape(B, 1, -1) @ p.wo
+    return merge_dims(out, (B, 1, -1), -1, cfg.num_heads) @ p.wo
 
 
 def decode_block(p, h, cfg: ModelConfig, cache: dict, cache_len: int, positions):
@@ -416,6 +460,7 @@ def prefill(params, batch, cfg: ModelConfig):
         else:
             x, _, cache = transformer_block(blk, x, cfg, positions, return_kv=True,
                                             mode="prefill")
+            x = shard_hint(x, residual_hint(cfg))
             cache["k"], cache["v"] = cache["k"][:, -S_cache:], cache["v"][:, -S_cache:]
         per_layer.append(cache)
     caches = {name: torch.stack([c[name] for c in per_layer]) for name in per_layer[0]}

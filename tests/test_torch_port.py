@@ -65,7 +65,10 @@ def test_port_runs_with_jax_blocked():
         "out = fdtd3d.numeric(shape=(8, 16, 40), steps=1, device='cpu')\n"
         "assert out['out'].shape == (8, 16, 40)\n"
         "black_scholes.numeric(n=64, device='cpu')\n"
-        "import repro_torch.core, repro_torch.data, repro_torch.models\n"
+        "import repro_torch.core, repro_torch.data, repro_torch.models, repro_torch.runtime\n"
+        "import repro_torch.launch.mesh, repro_torch.launch.sharding, repro_torch.launch.step\n"
+        "import repro_torch.launch.analysis, repro_torch.launch.dryrun, repro_torch.launch.perf\n"
+        "import repro_torch.bench.roofline\n"
         "from repro_torch.launch.serve import serve\n"
         "for arch in ('qwen2-7b', 'rwkv6-3b', 'hymba-1.5b', 'mixtral-8x22b'):\n"
         "    toks = serve(arch, batch=2, prompt_len=4, gen=3, device='cpu')\n"
@@ -104,9 +107,11 @@ def _no_card_entry_points():
     from repro_torch.core.residency import MemoryBudget, ResidencyPlan, ResidencyPlanner
     from repro_torch.data import prefetched
     from repro_torch.examples import train_lm
+    from repro_torch.launch.mesh import make_test_mesh
     from repro_torch.launch.serve import serve
     from repro_torch.launch.step import build_train_step
     from repro_torch.launch.train import train
+    from repro_torch.runtime import plan_elastic_mesh
 
     arch = get_config("qwen2-7b")
     cfg = arch.model.reduce()
@@ -120,12 +125,15 @@ def _no_card_entry_points():
             "train": lambda: train("qwen2-7b", steps=1, batch=1, seq=4),
             "build_train_step_host": lambda: build_train_step(arch, shape, None, host),
             "ResidencyPlanner": lambda: ResidencyPlanner(),
-            "train_lm": lambda: train_lm.main(["--steps", "2"])}
+            "train_lm": lambda: train_lm.main(["--steps", "2"]),
+            "make_test_mesh": lambda: make_test_mesh((1, 1)),
+            "plan_elastic_mesh": lambda: plan_elastic_mesh(arch, shape, 8)}
 
 
 @pytest.mark.parametrize("name", ["serve", "prefetched", "PrefetchIterator",
                                   "to_device_space", "train", "build_train_step_host",
-                                  "ResidencyPlanner", "train_lm"])
+                                  "ResidencyPlanner", "train_lm", "make_test_mesh",
+                                  "plan_elastic_mesh"])
 def test_movement_and_serve_default_to_the_card(name):
     """With no device given, the slice's entry points take the card, and
     raise without one instead of running on the CPU."""
