@@ -66,7 +66,19 @@
    ``offload_params`` of one full-width layer, and the four remat
    policies on a 2-layer full-width model.  With two cards, launches each
    kernel on device 1 after device 0.
-7. Trains starcoder2-3b at full width and depth (30 layers, 3.03 B
+7. The UM simulator and the paper's sweep engine (``repro_torch.core.
+   simulator``, ``repro_torch.umbench``), NumPy on the card's host: the
+   1,152-cell extended matrix run serially from the main thread (no cell in
+   error, N/A exactly where the platform gates put it, the paper's five
+   findings on its seed cells at tests/test_paper_claims.py's thresholds),
+   the eight apps x the extended variants and regimes on ``h100-host``, the
+   card's measured constants (memory, pinned host->device rate, device copy
+   rate, the SGEMM's fp32 rate) beside that platform's data-sheet ones with
+   the in-memory cells rerun on them, the simulated compute time of one BS,
+   SGEMM and FDTD3d iteration beside the kernel's measured time, and the
+   quickstart (its Black-Scholes on the card, held against the plain
+   version), the advise tour and section 4 of the oversubscription demo.
+8. Trains starcoder2-3b at full width and depth (30 layers, 3.03 B
    parameters, bf16, fp32 masters; B 8 x S 2,048): 8 steps through
    ``repro_torch.launch.train.train`` with the optimizer state on the card
    (ms a step, tokens/s, peak memory, the optimizer timed apart, one step
@@ -80,16 +92,16 @@
    dropped bias correction; on the reduced configs, the loss falling over
    30 steps, a restart from a checkpoint ending near an uninterrupted run,
    and a bf16 + fp32 + int8 checkpoint round trip bit for bit.
-8. The mesh path (``repro_torch.launch.mesh``, ``sharding``, ``step`` on a
+9. The mesh path (``repro_torch.launch.mesh``, ``sharding``, ``step`` on a
    mesh, ``runtime.compression``, ``launch.dryrun``): on the 2-layer cut of
-   7, one step in each sharding mode (2d, fsdp, zero1) on a (1, 1) mesh
+   8, one step in each sharding mode (2d, fsdp, zero1) on a (1, 1) mesh
    over NCCL, parameters and state as DTensors, held against the unsharded
    step (the loss and every updated parameter within 1e-6 of each tensor's
    largest value; whether they are bit for bit is printed), with each
    step's ms and its counted collectives; the int8 compressed all-reduce
    over the world-1 group bit for bit against quantize + dequantize; with
    two or more cards a 2d step on a (1, n) mesh, whose sharded products
-   round in another order: the loss within the bf16 gap of 7's checks,
+   round in another order: the loss within the bf16 gap of 8's checks,
    each parameter within one Adam step (2 lr) and a bf16 ulp of the
    unsharded step's, at most 1 % of them off, and the compressed mean
    within one quantisation step of the plain mean.  The dry-run runs in a
@@ -98,12 +110,12 @@
    H100s, not a measurement), then the cut on a 1 x 1 mesh, whose traced
    peak must lie within 10 % of the 2d step's measured peak and whose
    traced FLOPs must reach the analytic count, and the full depth, printed
-   beside 7's measured peak.
-9. Runs CG, Graph500 and the FFT convolutions at their default sizes, and
-   the kernel timing rows of ``repro_torch.bench.lm_bench``.
+   beside 8's measured peak.
+10. Runs CG, Graph500 and the FFT convolutions at their default sizes, and
+    the kernel timing rows of ``repro_torch.bench.lm_bench``.
 
 Prints ``{"serve_path": ...}``, ``{"family_serve": ...}``,
-``{"model_checks": ...}``, ``{"movement_path": ...}``,
+``{"model_checks": ...}``, ``{"movement_path": ...}``, ``{"um_path": ...}``,
 ``{"train_path": ...}``, ``{"mesh_path": ...}`` and ``{"kernels": [...]}``
 lines, then as its last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -113,6 +125,7 @@ card or no port beside this script.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import gc
 import json
 import math
@@ -128,8 +141,21 @@ ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
 GB = 2**30
-# harness.run_cell's working set for intel-volta-pcie in the in_memory regime
-WORKING_SET = int(0.8 * 16 * GB)
+
+
+def paper_working_set() -> int:
+    """``harness.run_cell``'s working set for the paper's 16 GiB Volta
+    (``intel-volta-pcie``) in the ``in_memory`` regime: 0.8 x 16 GiB."""
+    from repro_torch.umbench.harness import REGIMES
+    from repro_torch.umbench.platforms import INTEL_VOLTA
+
+    return int(REGIMES["in_memory"] * INTEL_VOLTA.device_mem_gb * GB)
+
+
+try:
+    WORKING_SET = paper_working_set()
+except ImportError:  # no port beside this script: main() says so and fails
+    WORKING_SET = 0
 BS_N = WORKING_SET // 5 // 4                          # bs.workload: nb = total // 5
 GEMM_N = int(math.sqrt(WORKING_SET // 3 / 4))         # cublas.workload
 GEMM_N_REDUCED = 16384
@@ -240,6 +266,30 @@ WO_FAULT_LAYER, ROPE_FAULT_LAYER = 14, 0
 # 2-layer qwen2-7b in fp32 at S 2,048, the policies held to "none" at the
 # JAX test's 1e-5 (tests/test_perf_variants.py:45-46).
 COPY_BYTES, COPY_REPS = 256 * 2**20, 5
+# The UM sweep engine (um_path).  The paper's five findings on the seed
+# cells of the extended matrix, at tests/test_paper_claims.py's thresholds:
+# (claim, app, platform, regime, variant, limit) on speedup_vs_um, and for
+# claim 4 the Intel-Volta prefetch speed-up above the P9's for each app.
+UM_CLAIMS = (
+    (1, "bs", "intel-pascal-pcie", "oversubscribed", "um_advise", "1.10 <= s <= 1.6"),
+    (1, "bs", "intel-volta-pcie", "oversubscribed", "um_advise", "1.10 <= s <= 1.6"),
+    (1, "conv1", "intel-pascal-pcie", "oversubscribed", "um_advise", "s > 1.3"),
+    (1, "conv1", "intel-volta-pcie", "oversubscribed", "um_advise", "s > 1.3"),
+    (2, "cg", "p9-volta-nvlink", "in_memory", "um_advise", "s > 1.3"),
+    (2, "fdtd3d", "p9-volta-nvlink", "in_memory", "um_advise", "s > 1.3"),
+    (3, "bs", "p9-volta-nvlink", "oversubscribed", "um_advise", "s < 0.5"),
+    (3, "cg", "p9-volta-nvlink", "oversubscribed", "um_advise", "s < 0.5"),
+    (4, "cg", "intel-volta-pcie", "in_memory", "um_prefetch", "s > 1.5"),
+    (5, "fdtd3d", "intel-pascal-pcie", "in_memory", "explicit", "s > 1.5"),
+    (5, "conv1", "intel-volta-pcie", "in_memory", "explicit", "s > 2.0"),
+)
+UM_CLAIM_LIMITS = {"1.10 <= s <= 1.6": lambda s: 1.10 <= s <= 1.6,
+                   "s > 1.3": lambda s: s > 1.3, "s < 0.5": lambda s: s < 0.5,
+                   "s > 1.5": lambda s: s > 1.5, "s > 2.0": lambda s: s > 2.0}
+UM_CLAIM4_APPS = ("bs", "cg", "fdtd3d")
+UM_BREAKDOWN_VARIANTS = ("um", "um_advise", "um_prefetch", "um_both")
+UM_KERNELS = (("black_scholes", "bs"), ("matmul", "cublas"), ("fdtd3d", "fdtd3d"))
+UM_MAX_S = 30.0
 PREFETCH_MODEL, PREFETCH_B, PREFETCH_S = "qwen2-vl-2b", 8, 4096
 PREFETCH_STEPS, PREFETCH_DISTINCT, PREFETCH_WARM = 16, 4, 3
 REMAT_S, REMAT_ATOL = 2048, 1e-5
@@ -579,6 +629,7 @@ class Smoke:
         self.failures: list[str] = []
         self.rows: list[dict] = []
         self.power_limit = "unknown"
+        self.card = "unknown"
         self.train_full_peak = None  # train_path's full-depth max_memory_allocated
 
     # -- helpers ---------------------------------------------------------
@@ -720,6 +771,7 @@ class Smoke:
             capture_output=True, text=True, timeout=60, check=True).stdout.strip()
         print(smi)
         self.power_limit = smi.splitlines()[0].split(",")[-1].strip()
+        self.card = smi.splitlines()[0].strip()
         nvcc = subprocess.run([_build.nvcc(), "--version"], capture_output=True,
                               text=True, timeout=60, check=True).stdout
         print(f"torch {torch.__version__} cuda {torch.version.cuda} "
@@ -2006,6 +2058,205 @@ class Smoke:
             "copy_bytes_per_s": rates, "prefetch": prefetch, "streaming": streaming,
             "remat": remat, "power_limit": self.power_limit}}))
 
+    # -- the UM simulator and the paper's sweep engine ---------------------
+
+    def um_claims(self, harness, cells) -> list[dict]:
+        """The paper's five findings on the seed cells of ``cells``."""
+        seed = [c for c in cells if c.platform in harness.DEFAULT_PLATFORMS
+                and c.regime in harness.DEFAULT_REGIMES and c.variant in harness.VARIANTS]
+        self.expect(f"um seed cells in the extended matrix ({len(seed)})", len(seed) == 240)
+        speedups = harness.speedup_vs_um(seed)
+        out = []
+        for claim, app, plat, regime, variant, limit in UM_CLAIMS:
+            s = speedups.get((app, plat, regime, variant, "group"))
+            ok = s is not None and UM_CLAIM_LIMITS[limit](s)
+            self.expect(f"um claim {claim}: {app} {plat} {regime} {variant} "
+                        f"speedup {s} ({limit}) [{self.card}]", ok)
+            out.append({"claim": claim, "cell": [app, plat, regime, variant],
+                        "speedup": s, "limit": limit, "ok": ok})
+        for app in UM_CLAIM4_APPS:
+            intel = speedups[(app, "intel-volta-pcie", "in_memory", "um_prefetch", "group")]
+            p9 = speedups[(app, "p9-volta-nvlink", "in_memory", "um_prefetch", "group")]
+            self.expect(f"um claim 4: {app} prefetch speedup intel-volta {intel} > "
+                        f"p9-volta {p9} [{self.card}]", intel > p9)
+            out.append({"claim": 4, "cell": [app, "intel-volta-pcie vs p9-volta-nvlink",
+                                             "in_memory", "um_prefetch"],
+                        "speedup": [intel, p9], "limit": "intel > p9", "ok": intel > p9})
+        na = ("bs", "intel-pascal-pcie", "oversubscribed", "explicit", "group")
+        self.expect("um claim 5: explicit N/A when oversubscribed", na not in speedups)
+        return out
+
+    def um_sweep(self, harness, plat) -> dict:
+        """(a) The extended matrix, serially from the main thread (the
+        per-cell deadline is SIGALRM-based)."""
+        t0 = time.perf_counter()
+        cells = harness.run_extended_matrix()
+        wall = time.perf_counter() - t0
+        errors = [c for c in cells if c.error is not None]
+        self.expect(f"um extended matrix: {len(cells)} cells, {len(errors)} errors "
+                    f"in {wall:.3f} s [{self.card}]", len(cells) == 1152 and not errors)
+        want_na = set()
+        for c in cells:
+            p = plat.PLATFORMS[c.platform]
+            coherent = p.host_can_access_device and p.device_can_access_host
+            if (c.variant == "explicit" and c.regime != "in_memory") or (
+                    c.variant in ("svm_remote", "um_hybrid_counters") and not coherent):
+                want_na.add((c.app, c.platform, c.variant, c.regime))
+        na = {(c.app, c.platform, c.variant, c.regime) for c in cells if c.report is None}
+        self.expect(f"um N/A cells exactly at the gates ({len(na)} of {len(want_na)})",
+                    na == want_na)
+        return {"cells": len(cells), "errors": len(errors), "na": len(na), "wall_s": wall,
+                "claims": self.um_claims(harness, cells)}
+
+    def um_platform_cells(self, harness, platform, variants, regimes) -> dict:
+        """Every app x ``variants`` x ``regimes`` on ``platform``: the cells
+        and the wall time."""
+        t0 = time.perf_counter()
+        cells = [harness.run_cell(app, v, platform, r) for app in harness.WORKLOADS
+                 for v in variants for r in regimes]
+        return {"cells": cells, "wall_s": time.perf_counter() - t0}
+
+    def um_rows(self, label, cells, variants, regimes) -> dict:
+        """Print total_s and the four-way breakdown of each app under
+        ``variants``; return {app: {variant: {regime: total_s}}}."""
+        by = {(c.app, c.variant, c.regime): c for c in cells}
+        out = {}
+        for app in dict.fromkeys(c.app for c in cells):
+            for v in variants:
+                parts = []
+                for r in regimes:
+                    rep = by[(app, v, r)].report
+                    out.setdefault(app, {}).setdefault(v, {})[r] = (
+                        None if rep is None else rep.total_s)
+                    parts.append(f"{r} N/A" if rep is None else (
+                        f"{r} total_s={rep.total_s:.6g} (compute {rep.compute_s:.6g} "
+                        f"fault_stall {rep.fault_stall_s:.6g} htod {rep.htod_s:.6g} "
+                        f"dtoh {rep.dtoh_s:.6g})"))
+                print(f"um {label} {app} {v}: " + "; ".join(parts) + f" [{self.card}]")
+        return out
+
+    def um_constants(self, H100_HOST) -> dict:
+        """(c) The card's own constants beside H100_HOST's: the memory, the
+        pinned host->device rate movement_path measured, a device copy rate
+        (bytes read plus written) and the fp32 rate of main_path's SGEMM."""
+        torch = self.torch
+        n = COPY_BYTES // 4
+        a = torch.ones(n, device=DEVICE)
+        b = torch.empty_like(a)
+        d2d = 2 * COPY_BYTES / (self.time_ms(lambda: b.copy_(a), reps=COPY_REPS) / 1e3)
+        del a, b
+        gemm = next(r for r in self.rows if r["name"] == "matmul")
+        gn = gemm["shape"][0]
+        measured = {
+            "device_mem_gb": torch.cuda.get_device_properties(0).total_memory / GB,
+            "link_bw_gbs": self.rates["h2d_pinned"] / GB,
+            "device_bw_gbs": d2d / GB,
+            "device_flops_tps": 2 * gn**3 / (gemm["ms"] / 1e3) / 1e12,
+        }
+        sources = {"device_mem_gb": "total_memory",
+                   "link_bw_gbs": "h2d_pinned, 256 MiB (movement_path)",
+                   "device_bw_gbs": "device copy_, 256 MiB, read + written",
+                   "device_flops_tps": f"SGEMM n={gn} (main_path, 3xTF32)"}
+        out = {}
+        for key, got in measured.items():
+            sheet = getattr(H100_HOST, key)
+            out[key] = {"measured": got, "data_sheet": sheet, "ratio": got / sheet,
+                        "source": sources[key]}
+            print(f"um constant {key}: measured {got:.6g} ({sources[key]}) vs "
+                  f"data sheet {sheet:g}, ratio {got / sheet:.4f} (GB = 2^30 B; "
+                  f"[{self.card}])")
+        return out
+
+    def um_kernel_ratios(self, harness, UMSimulator, get_strategy, platforms) -> list:
+        """The simulator's compute_s for one iteration of the BS, cuBLAS and
+        FDTD3d workloads sized to what main_path ran, beside the kernel's
+        measured ms."""
+        totals = {"bs": lambda shp: 20 * shp[0], "cublas": lambda shp: 12 * shp[0] ** 2,
+                  "fdtd3d": lambda shp: 8 * math.prod(shp) + 4096}
+        out = []
+        for name, app in UM_KERNELS:
+            row = next(r for r in self.rows if r["name"] == name)
+            wl = harness.WORKLOADS[app](totals[app](row["shape"]), iters=1)
+            entry = {"kernel": name, "app": app, "shape": row["shape"], "ms": row["ms"]}
+            for label, p in platforms.items():
+                sim = UMSimulator(p)
+                get_strategy("explicit").lower(wl, sim)
+                sim_ms = sim.finish().compute_s * 1e3
+                entry[label] = {"sim_ms": sim_ms, "measured_over_sim": row["ms"] / sim_ms}
+                print(f"um kernel {name} {tuple(row['shape'])}: measured {row['ms']:.4f} ms, "
+                      f"simulated on {label} {sim_ms:.4f} ms, ratio "
+                      f"{row['ms'] / sim_ms:.4f} [{self.card}]")
+            out.append(entry)
+        return out
+
+    def um_examples(self, quickstart, um_advise_tour, oversubscribe_demo) -> dict:
+        """(d) The quickstart (its BS on the card), the advise tour and the
+        demo's section 4."""
+        k = self.kernels
+        self.reset_counts()
+        qs = quickstart.main([])
+        launches = self.counters["black_scholes"].launches
+        self.expect(f"quickstart section 3 launched the BS kernel ({launches})", launches > 0)
+        bs = qs["bs"]
+        self.expect("quickstart ran on the card", bs["call"].is_cuda)
+        cr, pr = k.black_scholes(bs["s"], bs["x"], bs["t"], use_kernel=False)
+        err = max(self.check("quickstart bs call", bs["call"], cr, 1e-4),
+                  self.check("quickstart bs put", bs["put"], pr, 1e-4))
+        tour = um_advise_tour.main([])
+        print("=" * 72)
+        print("oversubscribe_demo section 4: the same oversubscription on the "
+              "paper's Intel-Volta (simulated)")
+        demo = oversubscribe_demo.volta_oversubscription()
+        return {"quickstart_bs_launches": launches, "quickstart_bs_max_abs_err": err,
+                "quickstart_plans": {a: [p["device_gb"], p["fits"]]
+                                     for a, p in qs["plans"].items()},
+                "tour_speedups": {" ".join(key): x for key, x in tour["speedups"].items()},
+                "demo_total_s": {v: r.total_s for v, r in demo.items()}}
+
+    def um_path(self, quickstart, um_advise_tour, oversubscribe_demo):
+        """The UM simulator and the sweep engine: NumPy on the host, held
+        here on the chip's host against the paper's findings, with the
+        card's measured constants beside the H100 platform's."""
+        from repro_torch.core import UMSimulator
+        from repro_torch.umbench import harness
+        from repro_torch.umbench import platforms as plat
+        from repro_torch.umbench.variants import get_strategy
+
+        print("== the UM simulator and sweep engine (um_path)")
+        t0 = time.perf_counter()
+        sweep = self.um_sweep(harness, plat)
+
+        h100 = self.um_platform_cells(harness, "h100-host", harness.EXTENDED_VARIANTS,
+                                      harness.EXTENDED_REGIMES)
+        errors = [c for c in h100["cells"] if c.error is not None]
+        self.expect(f"um h100-host: {len(h100['cells'])} cells, {len(errors)} errors in "
+                    f"{h100['wall_s']:.3f} s [{self.card}]",
+                    len(h100["cells"]) == 288 and not errors)
+        h100_rows = self.um_rows("h100-host", h100["cells"], UM_BREAKDOWN_VARIANTS,
+                                 harness.EXTENDED_REGIMES)
+
+        constants = self.um_constants(plat.H100_HOST)
+        measured = dataclasses.replace(
+            plat.H100_HOST, name="h100-measured",
+            **{key: v["measured"] for key, v in constants.items()})
+        meas = self.um_platform_cells(harness, measured, harness.VARIANTS, ("in_memory",))
+        meas_rows = self.um_rows("h100-measured", meas["cells"], harness.VARIANTS,
+                                 ("in_memory",))
+        kernels = self.um_kernel_ratios(harness, UMSimulator, get_strategy,
+                                        {"h100-host": plat.H100_HOST,
+                                         "h100-measured": measured})
+        examples = self.um_examples(quickstart, um_advise_tour, oversubscribe_demo)
+        wall = time.perf_counter() - t0
+        self.expect(f"um_path within {UM_MAX_S:.0f} s ({wall:.3f} s) [{self.card}]",
+                    wall < UM_MAX_S)
+        print(json.dumps({"um_path": {
+            "card": self.card, "power_limit": self.power_limit, "extended": sweep,
+            "h100_host": {"cells": len(h100["cells"]), "errors": len(errors),
+                          "wall_s": h100["wall_s"], "total_s": h100_rows},
+            "constants": constants,
+            "h100_measured": {"wall_s": meas["wall_s"], "total_s": meas_rows},
+            "kernels": kernels, "examples": examples, "wall_s": wall}}))
+
     # -- the training path -------------------------------------------------
 
     def device_batch(self, batch_np) -> dict:
@@ -2793,6 +3044,7 @@ def main() -> int:
         from repro_torch import kernels
         from repro_torch.bench.lm_bench import kernel_rows
         from repro_torch.configs import get_config
+        from repro_torch.examples import oversubscribe_demo, quickstart, um_advise_tour
         from repro_torch.examples.oversubscribe_demo import paged_decode
         from repro_torch.models import attention, init_caches, init_params
         from repro_torch.models import transformer as tf
@@ -2818,6 +3070,7 @@ def main() -> int:
         smoke.family_serve(tf, init_params, init_caches)
         smoke.model_checks(tf, init_params)
         smoke.movement_path(tf, init_params, tf.Block)
+        smoke.um_path(quickstart, um_advise_tour, oversubscribe_demo)
         smoke.train_path(tf, init_params)
         smoke.mesh_path(init_params, dryrun_proc)
     finally:

@@ -1,13 +1,57 @@
-"""Graph500: BFS (paper Table I), computed for real in plain PyTorch, as the
-JAX side computes it in plain ``jnp``."""
+"""Graph500 — BFS kernel (paper Table I).
+
+Data-dependent access: each level sweeps a frontier-dependent slice of the
+edge list (modeled with the simulator's ``partial`` access + rotating
+cursor).  Advise: PREFERRED_LOCATION(DEVICE) on the adjacency (the paper
+keeps data used by the GPU close to GPU memory); READ_MOSTLY on row
+pointers.  Figure of merit: mean BFS iteration (paper §III-B).
+``workload()`` builds the trace; variant lowering lives in
+``umbench.variants``.
+
+``numeric()`` computes it for real in plain PyTorch, as the JAX side
+computes it in plain ``jnp``.
+"""
 from __future__ import annotations
 
 import numpy as np
 import torch
 
+from repro_torch.core.advise import MemorySpace
 from repro_torch.device import resolve
+from repro_torch.umbench.workload import Workload, WorkloadBuilder
 
 NAME = "graph500"
+LEVELS = 8
+
+
+def workload(total_bytes: float, iters: int = LEVELS) -> Workload:
+    col = int(total_bytes * 0.70)
+    row = int(total_bytes * 0.10)
+    state = int(total_bytes * 0.20) // 3
+    w = WorkloadBuilder(NAME)
+    w.alloc("col_idx", col, role="graph")
+    w.alloc("row_ptr", row, role="graph")
+    for nm in ("frontier", "visited", "parent"):
+        w.alloc(nm, state, role="state")
+    w.host_write("col_idx")
+    w.host_write("row_ptr")
+    w.host_write("frontier", state)
+
+    w.advise_preferred_location("col_idx", MemorySpace.DEVICE)
+    w.advise_read_mostly("row_ptr")
+    w.prefetch("col_idx", "row_ptr")
+
+    edges = col / 8  # long indices (paper: long data types)
+    for _ in range(iters):
+        w.kernel(
+            "bfs_level",
+            flops=4.0 * edges / iters,
+            reads=("col_idx", "row_ptr", "frontier", "visited"),
+            writes=("frontier", "visited", "parent"),
+            partial={"col_idx": 1.0 / iters},
+        )
+    w.readback("parent")
+    return w.build()
 
 
 def random_graph(n: int, avg_deg: int, seed: int = 0):

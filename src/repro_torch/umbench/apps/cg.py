@@ -1,12 +1,60 @@
-"""CG: conjugate-gradient sparse solver (paper Table I), computed for real
-in plain PyTorch, as the JAX side computes it in plain ``jnp``."""
+"""CG — conjugate-gradient sparse solver (paper Table I).
+
+Advise policy (paper §IV-A): PREFERRED_LOCATION(DEVICE) on the matrix and b
+(+ ACCESSED_BY(HOST) so host initialization writes remotely into device
+memory on coherent platforms — the P9 in-memory win), READ_MOSTLY on the
+sparse matrix after initialization.  The error is computed on the host after
+the solve (one host read, in *every* variant).  The placement advises are
+PRE_INIT hints — they must land before host initialization for the remote
+init path to engage.  ``workload()`` builds the trace; variant lowering
+lives in ``umbench.variants``.
+
+``numeric()`` computes it for real in plain PyTorch, as the JAX side
+computes it in plain ``jnp``.
+"""
 from __future__ import annotations
 
 import torch
 
+from repro_torch.core.advise import Accessor, MemorySpace
 from repro_torch.device import resolve
+from repro_torch.umbench.workload import PRE_INIT, Workload, WorkloadBuilder
 
 NAME = "cg"
+ITERS = 12
+
+
+def workload(total_bytes: float, iters: int = ITERS) -> Workload:
+    a_data = int(total_bytes * 0.55)
+    a_idx = int(total_bytes * 0.25)
+    vec = int(total_bytes * 0.05)
+    w = WorkloadBuilder(NAME)
+    w.alloc("A_data", a_data, role="matrix")
+    w.alloc("A_idx", a_idx, role="matrix")
+    for nm in ("x", "b", "p", "q"):
+        w.alloc(nm, vec, role="vector")
+
+    for nm in ("A_data", "A_idx", "b"):
+        w.advise_preferred_location(nm, MemorySpace.DEVICE, when=PRE_INIT)
+        w.advise_accessed_by(nm, Accessor.HOST, when=PRE_INIT)
+
+    for nm in ("A_data", "A_idx", "b", "x", "p"):
+        w.host_write(nm)
+
+    w.advise_read_mostly("A_data")
+    w.advise_read_mostly("A_idx")
+    w.prefetch("A_data", "A_idx", "b", "p")
+
+    nnz = a_data / 4
+    for _ in range(iters):
+        # SpMV: q = A p
+        w.kernel("spmv", flops=2.0 * nnz,
+                 reads=("A_data", "A_idx", "p"), writes=("q",))
+        # dots + axpys on vectors
+        w.kernel("blas1", flops=6.0 * (vec / 4),
+                 reads=("q", "p", "b"), writes=("x", "p"))
+    w.host_read("x")
+    return w.build()
 
 
 def laplacian_csr(n: int, device=None):

@@ -69,6 +69,12 @@ def test_port_runs_with_jax_blocked():
         "import repro_torch.launch.mesh, repro_torch.launch.sharding, repro_torch.launch.step\n"
         "import repro_torch.launch.analysis, repro_torch.launch.dryrun, repro_torch.launch.perf\n"
         "import repro_torch.bench.roofline\n"
+        "from repro_torch.umbench import analysis, cellcache, harness, journal, schedule\n"
+        "from repro_torch.examples import quickstart, um_advise_tour\n"
+        "cells = harness.run_matrix(apps=['bs', 'cg'], platform_names=('h100-host',),\n"
+        "                           regimes=('in_memory',))\n"
+        "assert len(cells) == 10 and not [c for c in cells if c.error], cells\n"
+        "quickstart.main(['--device', 'cpu', '--hbm-bytes', '17179869184'])\n"
         "from repro_torch.launch.serve import serve\n"
         "for arch in ('qwen2-7b', 'rwkv6-3b', 'hymba-1.5b', 'mixtral-8x22b'):\n"
         "    toks = serve(arch, batch=2, prompt_len=4, gen=3, device='cpu')\n"
