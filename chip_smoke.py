@@ -78,6 +78,18 @@
    SGEMM and FDTD3d iteration beside the kernel's measured time, and the
    quickstart (its Black-Scholes on the card, held against the plain
    version), the advise tour and section 4 of the oversubscription demo.
+   Then the serving sweep, the analysis CLI and the benchmark runner
+   (``sweep_path``), on the card's host but for the last item: 24 clean
+   serving cells (every variant, traffic pattern, KV regime and both
+   serving platforms), each equal to its row of the committed
+   ``BENCH_umbench.json`` (the JAX package's artifact, read as data); the
+   12 variants serving the poisson trace at kv_150 on ``h100-host`` (no
+   error cell, N/A exactly at the platform gate; goodput and ttft_p99);
+   ``python -m repro_torch.umbench.analysis --contracts --serving``
+   in-process (exit 0); the KV-serving demo; ``repro_torch.bench.run
+   --fast --json`` into a temporary directory (the five claims met, every
+   cell equal to the committed artifact's, that artifact's hash unchanged);
+   and ``arch_step_rows`` on the card for the ten reduced configs.
 8. Trains starcoder2-3b at full width and depth (30 layers, 3.03 B
    parameters, bf16, fp32 masters; B 8 x S 2,048): 8 steps through
    ``repro_torch.launch.train.train`` with the optimizer state on the card
@@ -116,8 +128,8 @@
 
 Prints ``{"serve_path": ...}``, ``{"family_serve": ...}``,
 ``{"model_checks": ...}``, ``{"movement_path": ...}``, ``{"um_path": ...}``,
-``{"train_path": ...}``, ``{"mesh_path": ...}`` and ``{"kernels": [...]}``
-lines, then as its last line
+``{"sweep_path": ...}``, ``{"train_path": ...}``, ``{"mesh_path": ...}`` and
+``{"kernels": [...]}`` lines, then as its last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 Exits non-zero, with no such line, if a check fails, or if there is no CUDA
 card or no port beside this script.
@@ -290,6 +302,16 @@ UM_CLAIM4_APPS = ("bs", "cg", "fdtd3d")
 UM_BREAKDOWN_VARIANTS = ("um", "um_advise", "um_prefetch", "um_both")
 UM_KERNELS = (("black_scholes", "bs"), ("matmul", "cublas"), ("fdtd3d", "fdtd3d"))
 UM_MAX_S = 30.0
+# The serving sweep, the analysis CLI and the benchmark runner (sweep_path).
+# The committed BENCH_umbench.json is the JAX package's artifact, read as
+# data: SWEEP_SAMPLE of its 216 clean serving cells, a fixed rotation (stride
+# 7, coprime with the 12 variants and with 216) over the sweep's spec order.
+SWEEP_ARTIFACT = "BENCH_umbench.json"
+SWEEP_SAMPLE, SWEEP_STRIDE, SWEEP_CELLS = 24, 7, 216
+SWEEP_PATTERNS = ("poisson", "bursty", "diurnal")
+SWEEP_PLATFORMS = ("intel-volta-pcie", "p9-volta-nvlink")
+SWEEP_FIELDS = ("total_s", "completed", "faults", "evictions")
+SWEEP_MAX_S = 90.0
 PREFETCH_MODEL, PREFETCH_B, PREFETCH_S = "qwen2-vl-2b", 8, 4096
 PREFETCH_STEPS, PREFETCH_DISTINCT, PREFETCH_WARM = 16, 4, 3
 REMAT_S, REMAT_ATOL = 2048, 1e-5
@@ -2257,6 +2279,180 @@ class Smoke:
             "h100_measured": {"wall_s": meas["wall_s"], "total_s": meas_rows},
             "kernels": kernels, "examples": examples, "wall_s": wall}}))
 
+    # -- the serving sweep, the analysis CLI and the benchmark runner -------
+
+    def sweep_sample(self, serving, artifact_rows) -> dict:
+        """(a) SWEEP_SAMPLE clean serving cells, serially from the main
+        thread, each equal to the committed artifact's row."""
+        specs = serving.serving_specs(SWEEP_PATTERNS, SWEEP_PLATFORMS,
+                                      tuple(serving.SERVING_REGIMES))
+        self.expect(f"sweep serving specs ({len(specs)})", len(specs) == SWEEP_CELLS)
+        sample = [specs[(SWEEP_STRIDE * k) % SWEEP_CELLS] for k in range(SWEEP_SAMPLE)]
+        axes = ({f"serve_{p}" for p in SWEEP_PATTERNS}, set(SWEEP_PLATFORMS),
+                self.strategy_names(), set(serving.SERVING_REGIMES))
+        for name, axis, want in zip(("patterns", "platforms", "variants", "regimes"),
+                                    range(4), axes):
+            got = {s[axis] for s in sample}
+            self.expect(f"sweep sample covers the {len(want)} {name}", got == want)
+        t0 = time.perf_counter()
+        out, mismatched, na = [], 0, 0
+        for app, pname, variant, regime, _ in sample:
+            cell = serving.run_serving_cell(app, variant, pname, regime)
+            row = cell.row()
+            want = artifact_rows[(app, pname, variant, regime, "group")]
+            same = cell.error is None and all(row.get(f) == want.get(f) for f in SWEEP_FIELDS)
+            mismatched += not same
+            na += row["total_s"] is None
+            got = {f: row.get(f) for f in SWEEP_FIELDS}
+            print(f"sweep cell {app} {pname} {variant} {regime}: {got} vs artifact "
+                  f"{ {f: want.get(f) for f in SWEEP_FIELDS} } {'ok' if same else 'FAIL'}")
+            out.append({"cell": [app, pname, variant, regime], **got, "same": same})
+        wall = time.perf_counter() - t0
+        self.expect(f"sweep sample: {len(sample)} serving cells equal the committed "
+                    f"artifact ({mismatched} differ, {na} N/A) in {wall:.3f} s [{self.card}]",
+                    mismatched == 0)
+        return {"cells": len(sample), "mismatched": mismatched, "na": na, "wall_s": wall,
+                "rows": out}
+
+    @staticmethod
+    def strategy_names() -> set:
+        from repro_torch.umbench.variants import strategy_names
+        return set(strategy_names())
+
+    def sweep_h100(self, serving, plat) -> dict:
+        """(b) Every variant serving the poisson trace at kv_150 on
+        h100-host: no error cell, N/A exactly where the platform gate fails."""
+        from repro_torch.umbench.variants import get_strategy
+        p = plat.PLATFORMS["h100-host"]
+        t0 = time.perf_counter()
+        cells = [serving.run_serving_cell("poisson", v, "h100-host", "kv_150")
+                 for v in sorted(self.strategy_names())]
+        wall = time.perf_counter() - t0
+        errors = [c.variant for c in cells if c.error is not None]
+        na = {c.variant for c in cells if c.report is None}
+        gated = {c.variant for c in cells if not get_strategy(c.variant).available(p)}
+        self.expect(f"sweep h100-host: {len(cells)} cells, errors {errors} in "
+                    f"{wall:.3f} s [{self.card}]", len(cells) == 12 and not errors)
+        self.expect(f"sweep h100-host N/A {sorted(na)} exactly at the gate {sorted(gated)}",
+                    na == gated and bool(gated))
+        out = {}
+        for c in cells:
+            r = c.report
+            out[c.variant] = None if r is None else {
+                "goodput_rps": r.goodput_rps, "ttft_p99_s": r.ttft_p99_s,
+                "e2e_p99_s": r.e2e_p99_s, "completed": r.completed,
+                "evictions": r.sim.n_evictions, "total_s": r.total_s}
+            print(f"sweep h100-host poisson kv_150 {c.variant}: " + (
+                "N/A" if r is None else
+                f"goodput {r.goodput_rps:.6g} rps, ttft_p99 {r.ttft_p99_s:.6g} s, "
+                f"e2e_p99 {r.e2e_p99_s:.6g} s, completed {r.completed}, "
+                f"evictions {r.sim.n_evictions}") + f" [{self.card}]")
+            if r is not None:
+                self.expect(f"sweep h100-host {c.variant} served every request",
+                            r.completed == r.n_requests)
+        return {"cells": len(cells), "na": sorted(na), "wall_s": wall, "variants": out}
+
+    def sweep_runner(self, bench_run, artifact_rows) -> dict:
+        """(e) ``bench.run --fast --json --out <tmpdir>``: the five claims
+        met, every cell equal to the committed artifact's, and the committed
+        artifact untouched."""
+        import contextlib
+        import hashlib
+        import io
+        import tempfile
+
+        artifact = ROOT / SWEEP_ARTIFACT
+        before = hashlib.sha256(artifact.read_bytes()).hexdigest()
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with tempfile.TemporaryDirectory() as tmp:
+            with contextlib.redirect_stdout(buf):
+                rc = bench_run.main(["--fast", "--json", "--out", tmp])
+            payload = json.loads((Path(tmp) / bench_run.BENCH_PATH).read_text())
+            leftover = sorted(q.name for q in Path(tmp).iterdir())
+        wall = time.perf_counter() - t0
+        after = hashlib.sha256(artifact.read_bytes()).hexdigest()
+        lines = buf.getvalue().splitlines()
+        self.expect(f"sweep runner exit code {rc}", rc == 0)
+        self.expect(f"sweep runner left {leftover} in its directory",
+                    leftover == [bench_run.BENCH_PATH])
+        claims = [ln.split(",") for ln in lines if ln.startswith("claims,")]
+        measured = {c[1]: float(c[2].rstrip("x")) for c in claims}
+        limits = {"intel_oversub_advise_bs": lambda x: x >= 1.1,
+                  "p9_inmem_advise_cg": lambda x: x >= 1.3,
+                  "p9_oversub_advise_bs": lambda x: x <= 0.5,
+                  "intel_inmem_prefetch_cg": lambda x: x >= 1.5,
+                  "p9_inmem_prefetch_cg": lambda x: x < measured.get(
+                      "intel_inmem_prefetch_cg", 0.0)}
+        for c in claims:
+            print(f"sweep runner {','.join(c)}")
+        met = [k for k, ok in limits.items() if k in measured and ok(measured[k])]
+        self.expect(f"sweep runner: {len(met)} of 5 paper claims met", len(met) == 5
+                    and len(claims) == 5)
+        keyed = [r for r in payload["cells"]
+                 if (r["app"], r["platform"], r["variant"], r["regime"],
+                     r["granularity"]) in artifact_rows]
+        differ = [r for r in keyed if r != artifact_rows[
+            (r["app"], r["platform"], r["variant"], r["regime"], r["granularity"])]]
+        self.expect(f"sweep runner: {len(keyed)} of {len(payload['cells'])} cells keyed in "
+                    f"the committed artifact, {len(differ)} differ",
+                    len(keyed) == len(payload["cells"]) == 240 and not differ)
+        self.expect(f"sweep runner left {SWEEP_ARTIFACT} unchanged ({before[:12]})",
+                    before == after)
+        print(f"sweep runner: {lines[-1] if lines else ''} in {wall:.3f} s [{self.card}]")
+        return {"rc": rc, "claims": measured, "cells": len(payload["cells"]),
+                "differ": len(differ), "matrix_240_wall_s": payload["matrix_240_wall_s"],
+                "host": payload["host"], "wall_s": wall}
+
+    def sweep_path(self, serving, plat, analysis_main, kv_serving_demo, bench_run,
+                   arch_step_rows):
+        """The serving sweep, the analysis CLI, the serving demo, the
+        benchmark runner and the reduced configs' step timings on the card."""
+        print("== the serving sweep, analysis CLI and benchmark runner (sweep_path)")
+        t0 = time.perf_counter()
+        rows = json.loads((ROOT / SWEEP_ARTIFACT).read_text())["cells"]
+        artifact_rows = {(r["app"], r["platform"], r["variant"], r["regime"],
+                          r["granularity"]): r for r in rows}
+        sample = self.sweep_sample(serving, artifact_rows)
+        h100 = self.sweep_h100(serving, plat)
+
+        t1 = time.perf_counter()
+        rc = analysis_main(["--contracts", "--serving"])
+        cli_s = time.perf_counter() - t1
+        self.expect(f"sweep analysis CLI --contracts --serving exit code {rc} "
+                    f"({cli_s:.3f} s)", rc == 0)
+
+        t1 = time.perf_counter()
+        demo = kv_serving_demo.main([])
+        demo_s = time.perf_counter() - t1
+        served = [r for tiers in demo.values() for r in tiers.values() if r is not None]
+        self.expect(f"sweep serving demo: {len(served)} of 8 tiers served "
+                    f"({demo_s:.3f} s)", len(demo) == 2 and len(served) == 8
+                    and all(r.completed == r.n_requests for r in served))
+
+        runner = self.sweep_runner(bench_run, artifact_rows)
+
+        t1 = time.perf_counter()
+        lm_rows = arch_step_rows(device=DEVICE)
+        lm_s = time.perf_counter() - t1
+        steps = {}
+        for row in lm_rows[1:]:
+            _, arch, op, us, _ = row.split(",")
+            steps.setdefault(arch, {})[op] = float(us)
+            print(f"sweep {row} [{self.card}]")
+        self.expect(f"sweep arch_step_rows: {len(steps)} configs on the card ({lm_s:.3f} s)",
+                    len(lm_rows) == 21 and len(steps) == 10
+                    and all(v > 0 for ops in steps.values() for v in ops.values()))
+
+        wall = time.perf_counter() - t0
+        self.expect(f"sweep_path within {SWEEP_MAX_S:.0f} s ({wall:.3f} s) [{self.card}]",
+                    wall < SWEEP_MAX_S)
+        print(json.dumps({"sweep_path": {
+            "card": self.card, "power_limit": self.power_limit, "sample": sample,
+            "h100_host": h100, "cli": {"rc": rc, "wall_s": cli_s},
+            "demo": {"served": len(served), "wall_s": demo_s}, "runner": runner,
+            "arch_step_us": steps, "arch_step_wall_s": lm_s, "wall_s": wall}}))
+
     # -- the training path -------------------------------------------------
 
     def device_batch(self, batch_np) -> dict:
@@ -3042,12 +3238,17 @@ def main() -> int:
         return 2
     try:
         from repro_torch import kernels
-        from repro_torch.bench.lm_bench import kernel_rows
+        from repro_torch.bench import run as bench_run
+        from repro_torch.bench.lm_bench import arch_step_rows, kernel_rows
         from repro_torch.configs import get_config
-        from repro_torch.examples import oversubscribe_demo, quickstart, um_advise_tour
+        from repro_torch.examples import (kv_serving_demo, oversubscribe_demo, quickstart,
+                                          um_advise_tour)
         from repro_torch.examples.oversubscribe_demo import paged_decode
         from repro_torch.models import attention, init_caches, init_params
         from repro_torch.models import transformer as tf
+        from repro_torch.umbench import platforms as plat
+        from repro_torch.umbench import serving
+        from repro_torch.umbench.analysis.__main__ import main as analysis_main
         from repro_torch.umbench.apps import (bfs, black_scholes, cg, conv_fft,
                                               fdtd3d, matmul)
     except ImportError as e:
@@ -3071,6 +3272,8 @@ def main() -> int:
         smoke.model_checks(tf, init_params)
         smoke.movement_path(tf, init_params, tf.Block)
         smoke.um_path(quickstart, um_advise_tour, oversubscribe_demo)
+        smoke.sweep_path(serving, plat, analysis_main, kv_serving_demo, bench_run,
+                         arch_step_rows)
         smoke.train_path(tf, init_params)
         smoke.mesh_path(init_params, dryrun_proc)
     finally:

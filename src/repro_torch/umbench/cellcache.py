@@ -8,8 +8,7 @@ purity operational — each completed cell is persisted under a blake2s
 and a *code-rev* digest over ``src/repro_torch/core`` +
 ``src/repro_torch/umbench`` (what ran it), so a sweep given a cache re-runs
 only cells whose inputs or engine actually changed and replays the rest
-bit-identically from disk.  The port's copy of ``repro.umbench.cellcache``:
-the serving sweep's fingerprint comes with the port of ``umbench/serving``.
+bit-identically from disk.  The port's copy of ``repro.umbench.cellcache``.
 
 Invalidation is by comparison, never by trust:
 
@@ -49,6 +48,7 @@ __all__ = [
     "MISS_INPUT_CHANGE",
     "MISS_NEW_CELL",
     "code_rev",
+    "serving_spec_fingerprint",
     "spec_fingerprint",
 ]
 
@@ -139,6 +139,25 @@ def spec_fingerprint(spec: tuple) -> str:
         trace = _digest(repr(harness.WORKLOADS[app](total)))
         _TRACE_MEMO[memo_key] = trace
     return _digest(trace, _strategy_fingerprint(spec[2]), pname, regime,
+                   granularity, str(fname))
+
+
+def serving_spec_fingerprint(spec: tuple) -> str:
+    """Input hash for a serving spec: the cell-salted request trace the
+    scheduler will serve, the scheduler config, the KV budget fraction, and
+    the same strategy/axis components as :func:`spec_fingerprint`."""
+    from repro_torch.umbench import harness
+    from repro_torch.umbench.serving.scheduler import ServingConfig
+    from repro_torch.umbench.serving.sweep import SERVING_REGIMES
+    from repro_torch.umbench.serving.traffic import get_pattern
+    app, pname, vname, regime, granularity, fname, _ = \
+        harness._spec_fields(spec)
+    pat = get_pattern(app[len("serve_"):])
+    salt = f"{app}:{pname}:{vname}:{regime}:{granularity}"
+    requests = pat.generate(salt=salt)
+    return _digest(repr(requests), repr(ServingConfig()),
+                   repr(SERVING_REGIMES[regime]),
+                   _strategy_fingerprint(spec[2]), pname, regime,
                    granularity, str(fname))
 
 

@@ -60,13 +60,20 @@ def encode_cell(cell) -> dict:
 
 def decode_cell(rec: dict):
     """Reconstruct a clean cell from :func:`encode_cell`'s record shape.
-    Only clean matrix-cell records are decodable by design: failure records are
+    Only clean records are decodable by design: failure records are
     *incomplete* (journal loads skip them; the cache never stores them)."""
     from repro_torch.umbench.harness import CellResult
     rep = rec.get("report")
-    if rec.get("kind", "cell") != "cell":
-        # the serving sweep's cells decode with the port of umbench/serving
-        raise ValueError(f"no decoder for cell kind {rec['kind']!r}")
+    if rec.get("kind") == "serving":
+        from repro_torch.umbench.serving.metrics import ServingReport
+        from repro_torch.umbench.serving.sweep import ServingCellResult
+        return ServingCellResult(
+            app=rec["key"][0], platform=rec["key"][1],
+            variant=rec["key"][2], regime=rec["key"][3],
+            report=(None if rep is None
+                    else ServingReport.from_json_dict(rep)),
+            granularity=rec["key"][4], faults=rec["key"][5],
+        )
     return CellResult(
         app=rec["key"][0], platform=rec["key"][1],
         variant=rec["key"][2], regime=rec["key"][3],
