@@ -43,17 +43,26 @@
 5. Serves qwen2-7b at full width and depth in bf16 through
    ``repro_torch.launch.serve.serve`` (B 8, 2,048-token prompts from
    ``data.pipeline.prefetched``, 32 generated tokens): prefill ms, decode
-   ms a token, tokens/s, peak memory and each phase's share of its bound;
-   then one prefill and 4 decode steps of the same shapes under
-   ``torch.profiler``, for the device's busy share.  Then holds that model
+   ms a token, tokens/s, peak memory and each phase's share of its bound.
+   serve decodes through ``launch.step.build_serve_step``, one captured
+   CUDA graph a token: its tokens and logits are held bit for bit against
+   eager ``decode_step``s run on a copy of the same post-prefill caches
+   with the same inputs (ms a token both ways, the capture's ms), a replay
+   with a stale input (cache_len left un-advanced; for rwkv, whose step
+   reads no cache_len, the state left at the prompt's) is shown to fail
+   that comparison, and the graph must refuse other caches.  Then one
+   prefill, 4 eager decode steps and 4 graph replays of the same shapes
+   under ``torch.profiler``, for the device's busy share and the host's
+   launch calls a token.  Then holds that model
    on the card: bf16 against the same weights in
    fp32 (relative L2 of the last logits, a limit shown to reject a zeroed
    ``wo`` and RoPE positions off by one), and fp32 prefill + decode
    against the full forward at the JAX test's 2e-2.  The other families
-   are served the same way at full width: rwkv6-3b and hymba-1.5b at full
-   depth, mixtral-8x22b at 8 of its 56 layers (with the share of (token,
-   choice) pairs its MoE drops in prefill and decode); each one's decode
-   steps and a 1-layer copy's prefill are profiled.  They are held on the
+   are served and held the same way at full width: rwkv6-3b and
+   hymba-1.5b at 16 of 32 layers, mixtral-8x22b at 8 of its 56 (with the
+   share of (token, choice) pairs its MoE drops in prefill and decode,
+   counted in a serve with eager steps); each one's decode steps (eager
+   and graph) and a 1-layer copy's prefill are profiled.  They are held on the
    card as qwen2-7b is: bf16 against fp32 (the fp32 run routed as the bf16
    run; rwkv6-3b at its own limit, twice the reference's gap) with one
    fault each (rwkv's token shift ignored, hymba's Mamba D skip dropped,
@@ -342,6 +351,9 @@ FAMILY_BF16_LOGIT_REL = {"rwkv6-3b": 0.3}
 MOE_LOOP_TOKENS, MOE_LOOP_ATOL, MOE_LOOP_RTOL = 512, 1e-4, 1e-4
 # the library's matrix-product kernels, by name, in a profile
 GEMM_KERNEL = re.compile(r"gemm|nvjet|cutlass|xmma", re.IGNORECASE)
+# the host's calls that put work on the card: kernel and graph launches,
+# copies and fills (the graph step's two input copies a token)
+HOST_LAUNCH_API = re.compile(r"^cu(da)?(LaunchKernel|GraphLaunch|Memcpy|Memset)")
 # The training path: starcoder2-3b at full width and depth (30 layers, 3.03 B
 # parameters), bf16 with fp32 masters, through launch.train.train for
 # TRAIN_STEPS steps with the state on the card, then build_train_step for
@@ -634,6 +646,106 @@ def mesh_rank(rank: int, n: int, store: str, outdir: str, arch, shape, device: s
                     "collectives": counter.collectives().as_dict()},
                    Path(outdir) / "mesh_rank0.pt")
     dist.destroy_process_group()
+
+
+class GraphHeld:
+    """The CUDA-graph decode of one ``serve`` held against eager decode.
+    While open, ``launch.serve``'s decode steps are recorded: at the
+    capture, before the decode timer, two copies of the post-prefill caches
+    (their peak is below the prefill's); ``check`` then runs the eager
+    steps."""
+
+    def __init__(self, smoke, tf):
+        self.smoke, self.tf, self.seen = smoke, tf, {}
+
+    def __enter__(self):
+        from repro_torch.launch import serve as serve_mod
+
+        self.serve_mod, self.real = serve_mod, serve_mod.build_serve_step
+
+        def recording(arch, mesh=None, *, device=None):
+            step = self.real(arch, mesh, device=device)
+            capture = step.capture
+
+            def copy_then_capture(params, batch, caches, cache_len):
+                self.seen.update(step=step, params=params, caches=caches, **{
+                    name: {k: v.clone() for k, v in caches.items()}
+                    for name in ("eager", "pristine")})
+                capture(params, batch, caches, cache_len)
+
+            step.capture = copy_then_capture
+            return step
+
+        serve_mod.build_serve_step = recording
+        return self
+
+    def __exit__(self, *exc):
+        self.serve_mod.build_serve_step = self.real
+        self.seen.clear()
+
+    def check(self, label, toks, rec) -> dict:
+        """Run the serve's SERVE_GEN - 1 decode steps again as eager
+        ``decode_step``s on the copy of the post-prefill caches, with the
+        tokens the serve fed (its own, each step's input the token before)
+        and cache_len counting up from the prompt's length, as device
+        scalars; the graph's logits and tokens must equal them bit for bit.
+        Then the faults: from the post-prefill caches, step 0 replayed (it
+        must give the eager step 0's logits again), then step 1 replayed
+        with cache_len left at step 0's (or, where the step reads no
+        cache_len, rwkv's, from the post-prefill state), which must differ
+        from the eager step 1; and the graph must refuse other caches."""
+        smoke, torch, tf, seen = self.smoke, self.smoke.torch, self.tf, self.seen
+        step, params, caches = seen["step"], seen["params"], seen["caches"]
+        cfg, graph_logits = step.cfg, rec["logits"][1:]
+        tokens = torch.from_numpy(toks).to(DEVICE)
+        lens = [torch.tensor(SERVE_PROMPT + i, dtype=torch.int32, device=DEVICE)
+                for i in range(len(graph_logits))]
+        eager = []
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i, n in enumerate(lens):  # as serve's loop: the step, argmax, tokens to the host
+            logits, _ = tf.decode_step(params, {"tokens": tokens[:, i]}, seen["eager"], n, cfg)
+            eager.append(logits)
+            logits.argmax(dim=-1).cpu()
+        torch.cuda.synchronize()
+        eager_ms = (time.perf_counter() - t0) * 1e3 / len(lens)
+        differ = [i for i, (g, e) in enumerate(zip(graph_logits, eager))
+                  if not torch.equal(g, e)]
+        max_diff = max((g.float() - e.float()).abs().max().item()
+                       for g, e in zip(graph_logits, eager))
+        eager_toks = torch.stack([e.argmax(dim=-1) for e in eager], dim=1).cpu().numpy()
+        smoke.expect(f"{label}: graph decode == eager decode_step bit for bit, logits of "
+                     f"{len(lens)} steps ({len(differ)} differ, max |diff| {max_diff:.3e}) and "
+                     f"tokens", not differ and (eager_toks == toks[:, 1:]).all())
+
+        def replay(tok, n, fresh):
+            if fresh:
+                for k, v in caches.items():
+                    v.copy_(seen["pristine"][k])
+            step(params, {"tokens": tokens[:, tok]}, caches, lens[n])
+            return step.logits
+
+        smoke.expect(f"{label}: a replay from the post-prefill caches gives step 0's logits "
+                     "again",
+                     torch.equal(replay(0, 0, True), eager[0]))
+        if cfg.family == "ssm":
+            fault, got = "the state left at the prompt's", replay(1, 1, True)
+        else:
+            fault, got = "cache_len left un-advanced", replay(1, 0, False)
+        fault_diff = (got.float() - eager[1].float()).abs().max().item()
+        smoke.expect(f"{label}: the comparison rejects step 1 replayed with {fault} "
+                     f"(max |diff| {fault_diff:.3e})", not torch.equal(got, eager[1]))
+        smoke.expect_raise(f"{label}: the graph step refuses caches it was not captured on",
+                           lambda: step(params, {"tokens": tokens[:, 0]}, seen["pristine"],
+                                        lens[0]), ValueError)
+        out = {"eager_ms_per_token": eager_ms, "graph_ms_per_token": rec["decode_ms_per_token"],
+               "capture_ms": rec["capture_ms"], "steps": len(lens),
+               "steps_differing": len(differ), "max_abs_diff": max_diff,
+               "fault": fault, "fault_max_abs_diff": fault_diff}
+        print(f"{label}: decode {rec['decode_ms_per_token']:.2f} ms a token as a CUDA graph, "
+              f"{eager_ms:.2f} eager, capture {rec['capture_ms']:.1f} ms [{smoke.card}]")
+        del eager, graph_logits
+        return out
 
 
 class Smoke:
@@ -1387,11 +1499,13 @@ class Smoke:
         prompts = prefetched(cfg, ShapeConfig("serve", SERVE_PROMPT, SERVE_B, "prefill"),
                              device=DEVICE, depth=2)
         rec = {}
-        toks = serve(SERVE_MODEL, reduced=False, batch=SERVE_B, prompt_len=SERVE_PROMPT,
-                     gen=SERVE_GEN, device=DEVICE, prompts=prompts, record=rec)
-        torch.cuda.synchronize()
-        peak = torch.cuda.max_memory_allocated()
-        counts = {name: fn.launches for name, fn in self.counters.items()}
+        with GraphHeld(self, tf) as held:
+            toks = serve(SERVE_MODEL, reduced=False, batch=SERVE_B, prompt_len=SERVE_PROMPT,
+                         gen=SERVE_GEN, device=DEVICE, prompts=prompts, record=rec)
+            torch.cuda.synchronize()
+            peak = torch.cuda.max_memory_allocated()
+            counts = {name: fn.launches for name, fn in self.counters.items()}
+            graph = held.check("serve", toks, rec)
         self.serve_output("serve", cfg, toks, rec.pop("logits"))
         del prompts
         self.free()
@@ -1416,10 +1530,12 @@ class Smoke:
                "prefill_share": prefill_bound / rec["prefill_ms"],
                "decode_bytes": weight_bytes + kv_bytes, "decode_bound_ms": decode_bound,
                "decode_share": decode_bound / rec["decode_ms_per_token"],
-               "kernel_launches": counts, "power_limit": self.power_limit}
+               "graph": graph, "kernel_launches": counts, "card": self.card,
+               "power_limit": self.power_limit}
         print(f"serve: prefill {rec['prefill_ms']:.1f} ms (bound {prefill_bound:.1f} ms), "
-              f"decode {rec['decode_ms_per_token']:.2f} ms/token (bound "
-              f"{decode_bound:.2f} ms), {rec['tokens_per_s']:.1f} tokens/s, peak {peak} "
+              f"decode {rec['decode_ms_per_token']:.2f} ms/token as a CUDA graph, "
+              f"{graph['eager_ms_per_token']:.2f} eager (bound {decode_bound:.2f} ms), capture "
+              f"{rec['capture_ms']:.1f} ms, {rec['tokens_per_s']:.1f} tokens/s, peak {peak} "
               f"bytes; the model calls the plain attention, kernel launches {counts}")
         out["profile"] = self.serve_profile(tf, init_params, init_caches)
         print(json.dumps({"serve_path": out}))
@@ -1451,14 +1567,33 @@ class Smoke:
         toks = torch.randint(0, cfg.vocab_size, (SERVE_B, SERVE_PROMPT), generator=g,
                              device=DEVICE)
         caches = init_caches(cfg, SERVE_B, SERVE_PROMPT + SERVE_GEN, DEVICE)
-        step = {"tokens": toks[:, -1]}
-        tf.decode_step(params, step, caches, SERVE_PROMPT, cfg)  # warm-up
         out = self.profile_calls((
-            ("prefill", lambda: tf.prefill(params, {"tokens": toks}, cfg), 1),
-            ("decode", lambda: tf.decode_step(params, step, caches, SERVE_PROMPT, cfg),
-             DECODE_PROFILE_STEPS)))
+            ("prefill", lambda: tf.prefill(params, {"tokens": toks}, cfg), 1),))
+        out.update(self.decode_profiles(tf, cfg, params, caches, toks[:, -1]))
         del params, caches, toks
         self.free()
+        return out
+
+    def decode_profiles(self, tf, cfg, params, caches, tokens) -> dict:
+        """DECODE_PROFILE_STEPS eager ``decode_step``s at cache_len
+        SERVE_PROMPT, then as many replays of the serve step's CUDA graph
+        (``launch.step.build_serve_step``) on the same inputs, each under
+        torch.profiler after a warm-up."""
+        torch = self.torch
+        from repro_torch.configs import get_config
+        from repro_torch.launch.step import build_serve_step
+
+        step = {"tokens": tokens}
+        tf.decode_step(params, step, caches, SERVE_PROMPT, cfg)
+        n = torch.tensor(SERVE_PROMPT, dtype=torch.int32, device=DEVICE)
+        graph = build_serve_step(dataclasses.replace(get_config(cfg.name), model=cfg),
+                                 device=DEVICE)
+        graph(params, step, caches, n)
+        out = self.profile_calls((
+            ("decode", lambda: tf.decode_step(params, step, caches, SERVE_PROMPT, cfg),
+             DECODE_PROFILE_STEPS),
+            ("decode graph", lambda: graph(params, step, caches, n), DECODE_PROFILE_STEPS)))
+        del graph
         return out
 
     def profile_calls(self, calls, top: int = 5) -> dict:
@@ -1479,10 +1614,12 @@ class Smoke:
                     fn()
                 torch.cuda.synchronize()
                 wall_ms = (time.perf_counter() - t0) * 1e3 / n
-            by_name = {}
+            by_name, host_calls = {}, {}
             for e in prof.events():
                 if e.device_type == DeviceType.CUDA:
                     by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
+                elif HOST_LAUNCH_API.match(e.name):
+                    host_calls[e.name] = host_calls.get(e.name, 0) + 1
             busy_ms = sum(by_name.values()) / 1e3 / n
             slow = sorted(by_name.items(), key=lambda kv: -kv[1])[:top]
             gemm = sum(v for k, v in by_name.items() if GEMM_KERNEL.search(k))
@@ -1491,11 +1628,15 @@ class Smoke:
                          "device_busy_ms": busy_ms if by_name else None,
                          "device_busy_share": busy_ms / wall_ms if by_name else None,
                          "gemm_ms": gemm / 1e3 / n if by_name else None,
+                         "host_launch_calls": sum(host_calls.values()) / n,
+                         "host_launch_calls_by_api": {k: v / n for k, v in host_calls.items()},
                          "top_kernels_ms": {k[:80]: v / 1e3 / n for k, v in slow}}
             print(f"profile {name}: wall {wall_ms:.2f} ms, device kernels "
                   + (f"{busy_ms:.2f} ms ({busy_ms / wall_ms:.3f} busy) in "
                      f"{out[name]['kernels']} launches" if by_name else "not measured "
-                     "(the profiler saw no device activity)"))
+                     "(the profiler saw no device activity)")
+                  + f", {out[name]['host_launch_calls']:g} host launch calls a call "
+                  f"{out[name]['host_launch_calls_by_api']} [{self.card}]")
         return out
 
     def model_checks(self, tf, init_params):
@@ -1667,20 +1808,23 @@ class Smoke:
                 cfg, ShapeConfig("serve", SERVE_PROMPT, SERVE_B, "prefill"), device=DEVICE,
                 depth=2)))
             rec = {}
-            toks = serve(name, reduced=False, batch=SERVE_B, prompt_len=SERVE_PROMPT,
-                         gen=SERVE_GEN, device=DEVICE, params=params, prompts=[prompt],
-                         record=rec)
-            torch.cuda.synchronize()
-            peak = torch.cuda.max_memory_allocated()
-            counts = {n: fn.launches for n, fn in self.counters.items()}
+            with GraphHeld(self, tf) as held:
+                toks = serve(name, reduced=False, batch=SERVE_B, prompt_len=SERVE_PROMPT,
+                             gen=SERVE_GEN, device=DEVICE, params=params, prompts=[prompt],
+                             record=rec)
+                torch.cuda.synchronize()
+                peak = torch.cuda.max_memory_allocated()
+                counts = {n: fn.launches for n, fn in self.counters.items()}
+                graph = held.check(f"serve {name}", toks, rec)
             self.serve_output(f"serve {name}", cfg, toks, rec.pop("logits"))
             row = {"model": name, "layers": cfg.num_layers, "of_layers": depth,
                    "batch": SERVE_B, "prompt_len": SERVE_PROMPT, "gen": SERVE_GEN,
                    "dtype": cfg.dtype, "params": sum(p.numel() for p in params.parameters()),
                    "weight_bytes": sum(p.numel() * p.element_size() for p in params.parameters()),
                    **rec, "max_memory_allocated": peak,
-                   **self.serve_bounds(cfg, params, init_caches),
-                   "kernel_launches": counts, "power_limit": self.power_limit}
+                   **self.serve_bounds(cfg, params, init_caches), "graph": graph,
+                   "kernel_launches": counts, "card": self.card,
+                   "power_limit": self.power_limit}
             row["prefill_share"] = row["prefill_bound_ms"] / rec["prefill_ms"]
             row["decode_share"] = row["decode_bound_ms"] / rec["decode_ms_per_token"]
             seconds = {"serve": time.perf_counter() - t0}
@@ -1690,17 +1834,15 @@ class Smoke:
                 seconds["moe_drops"] = time.perf_counter() - t0
             print(f"serve {name}: prefill {rec['prefill_ms']:.1f} ms (bound "
                   f"{row['prefill_bound_ms']:.1f} ms), decode {rec['decode_ms_per_token']:.2f} "
-                  f"ms/token (bound {row['decode_bound_ms']:.3f} ms), "
+                  f"ms/token as a CUDA graph, {graph['eager_ms_per_token']:.2f} eager (bound "
+                  f"{row['decode_bound_ms']:.3f} ms), capture {rec['capture_ms']:.1f} ms, "
                   f"{rec['tokens_per_s']:.1f} tokens/s, peak {peak} bytes; kernel launches "
                   f"{counts}")
             # profiles: decode at the served depth, prefill at PROFILE_LAYERS
             t0 = time.perf_counter()
             caches = init_caches(cfg, SERVE_B, SERVE_PROMPT + SERVE_GEN, DEVICE)
-            step = {"tokens": prompt["tokens"][:, -1]}
-            tf.decode_step(params, step, caches, SERVE_PROMPT, cfg)  # warm-up
-            row["profile"] = self.profile_calls((
-                ("decode", lambda: tf.decode_step(params, step, caches, SERVE_PROMPT, cfg),
-                 DECODE_PROFILE_STEPS),))
+            row["profile"] = self.decode_profiles(tf, cfg, params, caches,
+                                                  prompt["tokens"][:, -1])
             del params, caches
             self.free()
             cut = dataclasses.replace(cfg, num_layers=min(PROFILE_LAYERS, cfg.num_layers))
@@ -1721,10 +1863,26 @@ class Smoke:
 
     def moe_drops(self, serve, name, params, prompt) -> dict:
         """The share of (token, choice) pairs the MoE dropped in the
-        prefill and in the decode steps of one serve of ``prompt``."""
+        prefill and in the decode steps of one serve of ``prompt``.  The
+        count runs in Python at each routing, which a graph's replay skips,
+        so this serve decodes with eager steps (the graph's are bit for bit
+        the same, ``GraphHeld.check``)."""
+        from repro_torch.launch import serve as serve_mod
         from repro_torch.models import moe as moe_lib
+        from repro_torch.models import transformer as tf
 
-        calls, real = [], moe_lib._routing
+        class EagerStep:
+            def __init__(self, arch, mesh=None, *, device=None):
+                self.cfg, self.logits = arch.model, None
+
+            def capture(self, *args):
+                pass
+
+            def __call__(self, params, batch, caches, cache_len):
+                self.logits, caches = tf.decode_step(params, batch, caches, cache_len, self.cfg)
+                return self.logits.argmax(dim=-1), caches
+
+        calls, real, real_step = [], moe_lib._routing, serve_mod.build_serve_step
 
         def counted(x_flat, *args):
             got = real(x_flat, *args)
@@ -1732,12 +1890,12 @@ class Smoke:
             calls.append((keep.numel(), keep.numel() - keep.sum()))
             return got
 
-        moe_lib._routing = counted
+        moe_lib._routing, serve_mod.build_serve_step = counted, EagerStep
         try:
             serve(name, reduced=False, batch=SERVE_B, prompt_len=SERVE_PROMPT, gen=SERVE_GEN,
                   device=DEVICE, params=params, prompts=[prompt])
         finally:
-            moe_lib._routing = real
+            moe_lib._routing, serve_mod.build_serve_step = real, real_step
         out = {}
         L = len(params.blocks)
         for phase, part in (("prefill", calls[:L]), ("decode", calls[L:])):

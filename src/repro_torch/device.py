@@ -14,3 +14,10 @@ def resolve(device=None) -> torch.device:
             "no CUDA device: the port runs on the GPU by default; pass "
             "device='cpu' to run the kernels' plain versions on the CPU")
     return dev
+
+
+def same_device(a: torch.device, b: torch.device) -> bool:
+    """Whether a and b are one device; ``cuda`` is the current card."""
+    def index(d):
+        return torch.cuda.current_device() if d.type == "cuda" and d.index is None else d.index
+    return a.type == b.type and index(a) == index(b)

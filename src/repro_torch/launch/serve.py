@@ -20,7 +20,8 @@ import numpy as np
 import torch
 
 from repro_torch.configs import ARCH_NAMES, get_config
-from repro_torch.device import resolve
+from repro_torch.device import resolve, same_device
+from repro_torch.launch.step import build_serve_step
 from repro_torch.models import init_caches, init_params
 from repro_torch.models import transformer as tf
 
@@ -28,13 +29,6 @@ from repro_torch.models import transformer as tf
 def _sync(dev: torch.device) -> None:
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
-
-
-def _same_device(a: torch.device, b: torch.device) -> bool:
-    """Whether a and b are one device; ``cuda`` is the current card."""
-    def index(d):
-        return torch.cuda.current_device() if d.type == "cuda" and d.index is None else d.index
-    return a.type == b.type and index(a) == index(b)
 
 
 def _prompt_batch(cfg, prompts, batch: int, prompt_len: int, dev) -> dict:
@@ -82,9 +76,14 @@ def serve(arch_name: str, *, reduced: bool = True, batch: int = 4,
     (default: the reference's seeded NumPy tokens).
     ``teacher``: tokens (batch, gen, ...) fed to the decode steps in place
     of the generated ones (teacher forcing).  ``record``: a dict that gets
-    ``prefill_ms``, ``decode_ms_per_token``, ``tokens_per_s`` (host clock,
-    the device synchronised) and ``logits``, the prefill's last-position
-    logits followed by each decode step's.
+    ``prefill_ms``, ``capture_ms`` (the decode step's CUDA graph, 0 on the
+    CPU), ``decode_ms_per_token``, ``tokens_per_s`` (host clock, the device
+    synchronised) and ``logits``, the prefill's last-position logits
+    followed by each decode step's.
+
+    The prefill runs eagerly; the decode steps go through
+    ``launch.step.build_serve_step``, as the reference's go through
+    ``jax.jit(build_serve_step(arch))``, with ``cache_len`` a device scalar.
     """
     arch = get_config(arch_name)
     if reduced:
@@ -94,7 +93,7 @@ def serve(arch_name: str, *, reduced: bool = True, batch: int = 4,
     g = torch.Generator(device=dev).manual_seed(seed)
     if params is None:
         params = init_params(cfg, g, dev)
-    elif not _same_device(next(params.parameters()).device, dev):
+    elif not same_device(next(params.parameters()).device, dev):
         raise ValueError(f"serve: params are on {next(params.parameters()).device}, "
                          f"the run on {dev}")
     else:  # weights cut in depth serve at their depth
@@ -127,15 +126,22 @@ def serve(arch_name: str, *, reduced: bool = True, batch: int = 4,
     generated = [next_tokens.cpu().numpy()]
     if teacher is not None:
         teacher = torch.as_tensor(np.asarray(teacher), dtype=torch.int32).to(dev)
+    # the decode step, captured once its caches are final (after the re-homing)
+    step = build_serve_step(dataclasses.replace(arch, model=cfg), device=dev)
+    cache_len = torch.tensor(prompt_len, dtype=torch.int32, device=dev)
     t0 = time.perf_counter()
-    cache_len = prompt_len
+    if gen > 1:
+        step.capture(params, {"tokens": next_tokens if teacher is None else teacher[:, 0]},
+                     caches, cache_len)
+        _sync(dev)
+    capture_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
     for i in range(gen - 1):
         step_in = next_tokens if teacher is None else teacher[:, i]
-        logits, caches = tf.decode_step(params, {"tokens": step_in}, caches,
-                                        cache_len, cfg)
-        if kept is not None:
-            kept.append(logits)
-        next_tokens = logits.argmax(dim=-1).to(torch.int32)
+        next_tokens, caches = step(params, {"tokens": step_in}, caches, cache_len)
+        if kept is not None:  # a graph rewrites one logits buffer every replay
+            kept.append(step.logits.clone())
+        next_tokens = next_tokens.to(torch.int32)
         generated.append(next_tokens.cpu().numpy())
         cache_len += 1
     dt = time.perf_counter() - t0
@@ -143,7 +149,7 @@ def serve(arch_name: str, *, reduced: bool = True, batch: int = 4,
     print(f"[{arch_name}] generated {toks.shape} tokens in {dt:.2f}s "
           f"({dt / max(gen - 1, 1) * 1e3:.1f} ms/token) on {dev}")
     if record is not None:
-        record.update(prefill_ms=prefill_s * 1e3,
+        record.update(prefill_ms=prefill_s * 1e3, capture_ms=capture_s * 1e3,
                       decode_ms_per_token=dt / max(gen - 1, 1) * 1e3,
                       tokens_per_s=batch * (gen - 1) / dt if dt > 0 else float("nan"),
                       logits=kept)

@@ -19,6 +19,10 @@ its ``shard_hint``s redistribute the activations.  After backward a
 gradient is ``Partial`` over the batch axes; it is reduced to its
 parameter's placement (2d, fsdp) or to its optimizer state's (zero1), the
 counterparts of the reference's gradient sharding constraints.
+
+With no mesh the serve step is a ``GraphServeStep``: on a card, one CUDA
+graph replayed a token, the counterpart of the reference's
+``jax.jit(build_serve_step(arch))``.
 """
 from __future__ import annotations
 
@@ -29,7 +33,7 @@ from repro_torch.configs.base import ArchConfig, ShapeConfig
 from repro_torch.core.advise import MemorySpace
 from repro_torch.core.residency import ResidencyPlan
 from repro_torch.core.streaming import fetch_params, offload_params
-from repro_torch.device import resolve
+from repro_torch.device import resolve, same_device
 from repro_torch.launch.mesh import mesh_context
 from repro_torch.launch.sharding import (
     batch_specs,
@@ -286,16 +290,104 @@ def build_prefill_step(arch: ArchConfig, mesh=None):
     return prefill_step
 
 
-def build_serve_step(arch: ArchConfig, mesh=None):
-    """One-token decode step: greedy sample + cache update (in place).  On
-    a mesh the caches are placed by ``place_caches``, the tokens by
-    ``batch_specs``, and the sampled tokens come back whole."""
+GRAPH_WARMUP = 2  # eager steps on scratch caches before a capture
+
+
+class GraphServeStep:
+    """The one-device serve step: the greedy decode (``decode_step`` and
+    ``argmax``) captured in one ``torch.cuda.CUDAGraph`` and replayed at
+    every call, as the reference runs ``jax.jit(build_serve_step(arch))``.
+
+    ``capture`` (or the first call) warms the step up on a side stream
+    against scratch clones of the caches (it writes them, so on the real
+    ones rwkv's and hymba's recurrent states would advance a token too
+    far), then captures it on that stream, which executes nothing.  The
+    graph reads static buffers, one per batch tensor and ``cache_len`` as a
+    0-d int32, which each call fills before the replay.  It is bound to the
+    params and the cache tensors it was captured on: a call with others
+    raises, and nothing re-captures or falls back to the eager step.  A
+    call returns (next tokens, caches), the tokens in a buffer that every
+    replay rewrites; ``logits`` is the step's logits, rewritten likewise.
+
+    Caches on the CPU take the eager step, which sets ``logits`` too.
+    ``device``: None follows the caches; a device makes any other raise.
+    """
+
+    def __init__(self, cfg, device=None):
+        self.cfg = cfg
+        self.device = None if device is None else torch.device(device)
+        self.graph = self.logits = None
+
+    def _device_of(self, caches) -> torch.device:
+        dev = next(iter(caches.values())).device
+        if self.device is not None and not same_device(dev, self.device):
+            raise ValueError(f"serve step: the caches are on {dev}, the step on {self.device}")
+        return dev
+
+    def _fill(self, batch, cache_len) -> None:
+        for k, v in batch.items():
+            self._batch[k].copy_(v)
+        if isinstance(cache_len, torch.Tensor):
+            self._cache_len.copy_(cache_len)
+        else:
+            self._cache_len.fill_(cache_len)
+
+    def capture(self, params, batch, caches, cache_len) -> None:
+        """Capture the step at these inputs' shapes on these params and
+        caches, which it leaves as they were; on the CPU, nothing."""
+        dev = self._device_of(caches)
+        if dev.type != "cuda":
+            return
+        if self.graph is not None:
+            raise RuntimeError("serve step: captured already; a step holds one graph")
+        self._params, self._caches = params, dict(caches)
+        self._batch = {k: torch.empty_like(v) for k, v in batch.items()}
+        self._cache_len = torch.empty((), dtype=torch.int32, device=dev)
+        self._fill(batch, cache_len)
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(side):
+            scratch = {k: v.clone() for k, v in caches.items()}
+            for _ in range(GRAPH_WARMUP):
+                tf.decode_step(params, self._batch, scratch, self._cache_len, self.cfg)
+            del scratch
+        torch.cuda.current_stream(dev).wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, stream=side):
+            logits, _ = tf.decode_step(params, self._batch, caches, self._cache_len, self.cfg)
+            nxt = logits.argmax(dim=-1)
+        self.graph, self.logits, self._next = graph, logits, nxt
+
+    def __call__(self, params, batch, caches, cache_len):
+        if self._device_of(caches).type != "cuda":
+            self.logits, caches = tf.decode_step(params, batch, caches, cache_len, self.cfg)
+            return self.logits.argmax(dim=-1), caches
+        if self.graph is None:
+            self.capture(params, batch, caches, cache_len)
+        if (params is not self._params or caches.keys() != self._caches.keys()
+                or any(caches[k].data_ptr() != c.data_ptr() or caches[k].shape != c.shape
+                       for k, c in self._caches.items())):
+            raise ValueError("serve step: its graph was captured on other params or caches")
+        if batch.keys() != self._batch.keys() or any(
+                v.shape != self._batch[k].shape for k, v in batch.items()):
+            raise ValueError(f"serve step: the batch must hold {tuple(self._batch)} of "
+                             f"the captured shapes")
+        self._fill(batch, cache_len)
+        self.graph.replay()
+        return self._next, caches
+
+
+def build_serve_step(arch: ArchConfig, mesh=None, *, device=None):
+    """One-token decode step: greedy sample + cache update (in place),
+    ``(next tokens, caches)``.  With no mesh a ``GraphServeStep`` on
+    ``device`` (default: the caches' device), captured as a CUDA graph on a
+    card; on a mesh the eager step, the caches placed by ``place_caches``,
+    the tokens by ``batch_specs``, and the sampled tokens come back whole."""
     cfg = arch.model
+    if mesh is None:
+        return GraphServeStep(cfg, device)
 
     def serve_step(params, batch, caches, cache_len):
-        if mesh is None:
-            logits, caches = tf.decode_step(params, batch, caches, cache_len, cfg)
-            return logits.argmax(dim=-1), caches
         with mesh_context(mesh):
             logits, caches = tf.decode_step(params, place_batch(arch, batch, mesh, "decode"),
                                             caches, cache_len, cfg)
@@ -305,7 +397,7 @@ def build_serve_step(arch: ArchConfig, mesh=None):
 
 
 __all__ = [
-    "abstract_caches", "abstract_opt_state", "abstract_params",
+    "GraphServeStep", "abstract_caches", "abstract_opt_state", "abstract_params",
     "build_prefill_step", "build_serve_step", "build_train_step", "input_specs",
     "make_shardings", "place_batch", "place_caches", "place_train_state",
 ]

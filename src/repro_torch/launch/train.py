@@ -25,8 +25,7 @@ from repro_torch.checkpoint import Checkpointer
 from repro_torch.configs import ARCH_NAMES, get_config
 from repro_torch.configs.base import ShapeConfig
 from repro_torch.data import DataConfig, synthetic_batches
-from repro_torch.device import resolve
-from repro_torch.launch.serve import _same_device
+from repro_torch.device import resolve, same_device
 from repro_torch.launch.step import _adamw_cfg, build_train_step
 from repro_torch.models import init_params
 from repro_torch.optim import init_state
@@ -60,7 +59,7 @@ def train(arch_name: str, *, steps: int = 50, reduced: bool = True,
     dev = resolve(device)
     if params is None:
         params = init_params(arch.model, torch.Generator(device=dev).manual_seed(seed), dev)
-    elif not _same_device(next(params.parameters()).device, dev):
+    elif not same_device(next(params.parameters()).device, dev):
         raise ValueError(f"train: params are on {next(params.parameters()).device}, "
                          f"the run on {dev}")
     else:  # weights cut in depth train at their depth

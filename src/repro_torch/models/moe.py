@@ -78,7 +78,9 @@ def _routing(x_flat, router_w, top_k: int, capacity: int, num_experts: int):
     gate_vals, gate_idx = _top_k(probs, top_k)
     gate_vals = _renormalise(gate_vals)
     g, s, e = logits.shape
-    onehot = F.one_hot(gate_idx, e)                          # (G,S,k,E)
+    # F.one_hot's equal: its CPU version checks the indices' range by reading
+    # them on the host, which a captured decode step may not do
+    onehot = (gate_idx[..., None] == torch.arange(e, device=gate_idx.device)).long()  # (G,S,k,E)
     # the slot: an exclusive count over the token-major (token, choice) order
     flat = onehot.reshape(g, s * top_k, e)
     pos = (flat.cumsum(dim=1) - flat).reshape(g, s, top_k, e)

@@ -23,7 +23,10 @@ of window size for sliding-window archs; rwkv's token shifts and WKV
 state; hybrid's K/V plus the Mamba conv and SSM states.  One deliberate
 difference: ``decode_step`` writes the new token's K/V row and the new
 recurrent states into the cache tensors it is given and returns them,
-where the reference returns new caches.
+where the reference returns new caches.  ``cache_len`` is an int or, as
+the reference's traced ``int32`` scalar, a 0-d tensor on the caches'
+device that the step never reads on the host, so that the step can be
+captured in a CUDA graph (``launch.step.build_serve_step``).
 """
 from __future__ import annotations
 
@@ -356,27 +359,38 @@ def init_caches(cfg: ModelConfig, batch: int, max_seq: int, device=None) -> dict
     return caches
 
 
-def _write_row(cache, row, slot: int) -> None:
-    """cache[:, slot] = row, in place.  On a DTensor the row goes in through
-    a functional update copied back whole: indexing a sharded dim gives a
-    redistributed copy, not a view, and a write into it would be lost."""
+def _write_row(cache, row, slot) -> None:
+    """cache[:, slot] = row, in place; ``slot`` an int or a 0-d device
+    tensor.  A tensor slot goes in through ``index_copy_``, which reads it
+    on the device.  On a DTensor the row goes in through a functional
+    update copied back whole: indexing a sharded dim gives a redistributed
+    copy, not a view, and a write into it would be lost; ``slice_scatter``
+    takes an int start only, so a DTensor takes an int slot."""
     if isinstance(cache, DTensor):
+        if isinstance(slot, torch.Tensor):
+            raise TypeError("decode on a mesh takes an int cache_len")
         cache.copy_(cache.slice_scatter(row[:, None].to(cache.dtype), dim=1,
                                         start=slot, end=slot + 1))
+    elif isinstance(slot, torch.Tensor):
+        cache.index_copy_(1, slot.reshape(1).long(), row[:, None].to(cache.dtype))
     else:
         cache[:, slot] = row
 
 
-def _decode_attn(p, h, cfg: ModelConfig, k_cache, v_cache, cache_len: int, positions):
+def _decode_attn(p, h, cfg: ModelConfig, k_cache, v_cache, cache_len, positions):
     """One-token attention against a (possibly ring-buffered) cache,
     k_cache/v_cache (B,Scache,Hkv,Dh), whose row at the new token's slot is
-    overwritten in place."""
+    overwritten in place.  ``cache_len``: an int or a 0-d device tensor."""
     B = h.shape[0]
     q, k_new, v_new = _project_qkv(p, h, cfg)
     q, k_new = _rotate(q, k_new, positions, cfg)
     S_cache = k_cache.shape[1]
     ring = cfg.sliding_window is not None and S_cache == cfg.sliding_window
-    slot = cache_len % S_cache if ring else min(cache_len, S_cache - 1)
+    if isinstance(cache_len, torch.Tensor):
+        slot = (torch.remainder(cache_len, S_cache) if ring
+                else cache_len.clamp(max=S_cache - 1))
+    else:
+        slot = cache_len % S_cache if ring else min(cache_len, S_cache - 1)
     _write_row(k_cache, k_new[:, 0], slot)
     _write_row(v_cache, v_new[:, 0], slot)
     # keep the cache SEQUENCE-sharded through the attention math (split-KV)
@@ -393,7 +407,7 @@ def _decode_attn(p, h, cfg: ModelConfig, k_cache, v_cache, cache_len: int, posit
     return merge_dims(out, (B, 1, -1), -1, cfg.num_heads) @ p.wo
 
 
-def decode_block(p, h, cfg: ModelConfig, cache: dict, cache_len: int, positions):
+def decode_block(p, h, cfg: ModelConfig, cache: dict, cache_len, positions):
     """One layer, one token. h: (B,1,d); ``cache`` holds this layer's
     slices of the stacked caches, which are written in place."""
     hn = apply_norm(h, p.ln1, cfg.norm)
@@ -415,11 +429,18 @@ def decode_block(p, h, cfg: ModelConfig, cache: dict, cache_len: int, positions)
 def decode_step(params, batch, caches, cache_len, cfg: ModelConfig):
     """One serve step: batch["tokens"]: (B,) [or (B,K)] -> logits + caches.
 
-    cache_len: tokens already in the cache (an int or a 0-d tensor).  The
-    new token's K/V row and the new recurrent states are written into
-    ``caches`` in place, and the same dict is returned.
+    cache_len: tokens already in the cache, an int or a 0-d integer tensor
+    on the caches' device, which is read only on the device: the step makes
+    no host read and no shape of it depends on the data.  The new token's
+    K/V row and the new recurrent states are written into ``caches`` in
+    place, and the same dict is returned.
     """
-    cache_len = int(cache_len)
+    if isinstance(cache_len, torch.Tensor):
+        dev = next(iter(caches.values())).device
+        if cache_len.ndim or cache_len.device != dev:
+            raise ValueError(f"decode_step: cache_len must be an int or a 0-d tensor on "
+                             f"{dev}, not a {tuple(cache_len.shape)} tensor on "
+                             f"{cache_len.device}")
     if cfg.family == "audio" and batch["tokens"].ndim == 2:
         tokens = batch["tokens"][:, None, :]       # (B,1,K)
     else:
@@ -429,7 +450,10 @@ def decode_step(params, batch, caches, cache_len, cfg: ModelConfig):
     else:
         x = embed_tokens(params.embedding, tokens)
     B = x.shape[0]
-    positions = torch.full((B, 1), cache_len, dtype=torch.long, device=x.device)
+    if isinstance(cache_len, torch.Tensor):
+        positions = cache_len.expand(B, 1)
+    else:
+        positions = torch.full((B, 1), cache_len, dtype=torch.long, device=x.device)
     if cfg.rope == "mrope":
         positions = text_mrope_positions(positions)
     for i, blk in enumerate(params.blocks):
