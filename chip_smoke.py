@@ -50,8 +50,17 @@
    with the same inputs (ms a token both ways, the capture's ms), a replay
    with a stale input (cache_len left un-advanced; for rwkv, whose step
    reads no cache_len, the state left at the prompt's) is shown to fail
-   that comparison, and the graph must refuse other caches.  Then one
-   prefill, 4 eager decode steps and 4 graph replays of the same shapes
+   that comparison, and the graph must refuse other caches.  serve
+   prefills through ``launch.step.build_prefill_step``, one layer's CUDA
+   graph captured once and replayed over the layers: the cold call's logits
+   and a warm call's logits and every cache tensor are held bit for bit
+   against the eager ``transformer.prefill`` on the same prompt batch (cold
+   ms with the capture, the capture's ms, warm and eager ms, the memory
+   each took and the slot's bytes), a warm call with one layer's weights
+   left out of the slot is shown to fail that comparison, a prompt a token
+   shorter must be refused, and a warm call under ``torch.profiler`` must
+   launch one graph a layer (its host launch calls and busy share).  Then
+   one prefill, 4 eager decode steps and 4 graph replays of the same shapes
    under ``torch.profiler``, for the device's busy share and the host's
    launch calls a token.  Then holds that model
    on the card: bf16 against the same weights in
@@ -62,7 +71,8 @@
    hymba-1.5b at 16 of 32 layers, mixtral-8x22b at 8 of its 56 (with the
    share of (token, choice) pairs its MoE drops in prefill and decode,
    counted in a serve with eager steps); each one's decode steps (eager
-   and graph) and a 1-layer copy's prefill are profiled.  They are held on the
+   and graph), its graph prefill and a 1-layer copy's eager prefill are
+   profiled.  They are held on the
    card as qwen2-7b is: bf16 against fp32 (the fp32 run routed as the bf16
    run; rwkv6-3b at its own limit, twice the reference's gap) with one
    fault each (rwkv's token shift ignored, hymba's Mamba D skip dropped,
@@ -486,6 +496,19 @@ def family_fault(params):
                 p.copy_(s)
 
 
+@contextlib.contextmanager
+def slot_not_loaded(step, layer: int):
+    """The compiled prefill's fault, undone on exit: the slot does not take
+    layer ``layer``'s weights before that layer's replay, which then runs
+    on the weights of the layer before it (``GraphPrefillStep._load``)."""
+    calls, real = iter(range(1 << 30)), step._load
+    step._load = lambda weights: None if next(calls) == layer else real(weights)
+    try:
+        yield f"layer {layer}'s weights not copied into the slot"
+    finally:
+        del step._load
+
+
 def rel_l2(pairs) -> float:
     """sqrt(sum |got - want|^2 / sum |want|^2) over (got, want) pairs of
     float arrays or tensors."""
@@ -745,6 +768,134 @@ class GraphHeld:
         print(f"{label}: decode {rec['decode_ms_per_token']:.2f} ms a token as a CUDA graph, "
               f"{eager_ms:.2f} eager, capture {rec['capture_ms']:.1f} ms [{smoke.card}]")
         del eager, graph_logits
+        return out
+
+
+class PrefillHeld:
+    """The compiled prefill of one ``serve`` held against the eager
+    ``tf.prefill``.  While open, ``launch.serve``'s prefill step is
+    recorded with the params and prompt batch it prefilled, and its cold
+    call (the capture included) timed on the host clock with the device
+    synchronised, beside the device memory before it and the peak after
+    it; ``check`` then runs the eager prefill and a warm call of the same
+    step."""
+
+    def __init__(self, smoke, tf):
+        self.smoke, self.tf, self.seen = smoke, tf, {}
+
+    def __enter__(self):
+        from repro_torch.launch import serve as serve_mod
+
+        torch, seen = self.smoke.torch, self.seen
+        self.serve_mod, self.real = serve_mod, serve_mod.build_prefill_step
+
+        class Timed:
+            def __init__(self, step):
+                self.step = step
+
+            def __getattr__(self, name):  # logits, capture_ms
+                return getattr(self.step, name)
+
+            def __call__(self, params, batch):
+                torch.cuda.synchronize()
+                before = torch.cuda.memory_allocated()
+                t0 = time.perf_counter()
+                out = self.step(params, batch)
+                torch.cuda.synchronize()
+                seen.update(step=self.step, params=params, batch=batch,
+                            cold_ms=(time.perf_counter() - t0) * 1e3,
+                            cold_before=before, cold_peak=torch.cuda.max_memory_allocated())
+                return out
+
+        def recording(arch, mesh=None):
+            return Timed(self.real(arch, mesh))
+
+        serve_mod.build_prefill_step = recording
+        return self
+
+    def __exit__(self, *exc):
+        self.serve_mod.build_prefill_step = self.real
+        self.seen.clear()
+
+    def timed(self, fn):
+        """fn()'s result, its host ms (the device synchronised) and the
+        device memory it took above what was allocated before it."""
+        torch = self.smoke.torch
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t0) * 1e3, torch.cuda.max_memory_allocated() - before
+
+    def check(self, label, rec) -> dict:
+        """The served prompt batch prefilled again by a warm call of the
+        serve's step and by the eager ``tf.prefill``: the cold call's
+        logits (the serve's first), and the warm call's logits and every
+        cache tensor, must equal the eager ones bit for bit, and the step
+        must keep the one graph it captured.  The faults: a warm call with
+        one layer's weights left out of the slot (``slot_not_loaded``) must
+        change the logits, and a prompt a token shorter must be refused.
+        One warm call runs under torch.profiler: one ``cudaGraphLaunch`` a
+        layer.  The step, whose graph holds a memory pool of one layer's
+        transients, is released before the eager prefill (mixtral's pool
+        and the eager prefill's transients together exceed the card)."""
+        smoke, torch, tf, seen = self.smoke, self.smoke.torch, self.tf, self.seen
+        step, params, batch = seen.pop("step"), seen["params"], seen["batch"]
+        cfg, graph, L = step.cfg, step.graph, len(params.blocks)
+        smoke.expect(f"{label}: the prefill step captured one layer's CUDA graph",
+                     graph is not None)
+        (_, got), warm_ms, warm_mem = self.timed(lambda: step(params, batch))
+        got_logits = step.logits
+        with slot_not_loaded(step, L // 2) as fault:
+            step(params, batch)
+        fault_logits = step.logits
+        short = {k: v[:, :-1] for k, v in batch.items()}
+        smoke.expect_raise(f"{label}: the prefill step refuses a prompt of "
+                           f"{next(iter(short.values())).shape[1]} tokens",
+                           lambda: step(params, short), ValueError)
+        prof = smoke.profile_calls(((f"prefill graph of {L} layers",
+                                     lambda: step(params, batch), 1),))
+        prof = next(iter(prof.values()))
+        launches = prof["host_launch_calls_by_api"].get("cudaGraphLaunch", 0)
+        smoke.expect(f"{label}: a warm graph prefill launches {launches:g} graphs, one a layer "
+                     f"({L})", launches == L)
+        smoke.expect(f"{label}: the prefill step kept the graph it captured", step.graph is graph)
+        slot_bytes = sum(p.numel() * p.element_size() for p in step.slot.parameters())
+        capture_ms = step.capture_ms
+        del step, graph
+        smoke.free()
+        (want_logits, want), eager_ms, eager_mem = self.timed(
+            lambda: tf.prefill(params, batch, cfg))
+        differ = [k for k in want if not torch.equal(got[k], want[k])]
+        same = (torch.equal(rec["logits"][0], want_logits)
+                and torch.equal(got_logits, want_logits) and not differ)
+        max_diff = max([(got_logits.float() - want_logits.float()).abs().max().item()]
+                       + [(got[k].float() - want[k].float()).abs().max().item() for k in want])
+        smoke.expect(f"{label}: graph prefill == eager tf.prefill bit for bit: the cold and a "
+                     f"warm call's logits, the warm call's caches {sorted(want)} (differ: "
+                     f"{differ}, max |diff| {max_diff:.3e})", same)
+        fault_diff = (fault_logits.float() - want_logits.float()).abs().max().item()
+        smoke.expect(f"{label}: the comparison rejects the prefill with {fault} (max |diff| "
+                     f"{fault_diff:.3e})", not torch.equal(fault_logits, want_logits))
+        del got, want
+        out = {"cold_ms": seen["cold_ms"], "capture_ms": capture_ms, "warm_ms": warm_ms,
+               "eager_ms": eager_ms, "layers": L, "max_abs_diff": max_diff,
+               "fault": fault, "fault_max_abs_diff": fault_diff,
+               "cold_peak_bytes": seen["cold_peak"],
+               "cold_above_bytes": seen["cold_peak"] - seen["cold_before"],
+               "warm_above_bytes": warm_mem, "eager_above_bytes": eager_mem,
+               "slot_bytes": slot_bytes, "profile": prof,
+               "host_launch_calls_per_layer": prof["host_launch_calls"] / L}
+        print(f"{label}: prefill as one layer's CUDA graph over {L} layers: cold "
+              f"{seen['cold_ms']:.1f} ms (capture {capture_ms:.1f}), warm {warm_ms:.1f}, "
+              f"eager {eager_ms:.1f}; {prof['host_launch_calls']:g} host launch calls a prefill "
+              f"({out['host_launch_calls_per_layer']:.2f} a layer), busy "
+              f"{prof['device_busy_share'] or float('nan'):.3f}; peak {seen['cold_peak']} bytes, "
+              f"the cold call {out['cold_above_bytes']} above what it found (slot "
+              f"{slot_bytes}), a warm call {warm_mem}, the eager prefill {eager_mem} "
+              f"[{smoke.card}]")
         return out
 
 
@@ -1499,13 +1650,14 @@ class Smoke:
         prompts = prefetched(cfg, ShapeConfig("serve", SERVE_PROMPT, SERVE_B, "prefill"),
                              device=DEVICE, depth=2)
         rec = {}
-        with GraphHeld(self, tf) as held:
+        with GraphHeld(self, tf) as held, PrefillHeld(self, tf) as held_prefill:
             toks = serve(SERVE_MODEL, reduced=False, batch=SERVE_B, prompt_len=SERVE_PROMPT,
                          gen=SERVE_GEN, device=DEVICE, prompts=prompts, record=rec)
             torch.cuda.synchronize()
             peak = torch.cuda.max_memory_allocated()
             counts = {name: fn.launches for name, fn in self.counters.items()}
             graph = held.check("serve", toks, rec)
+            prefill_graph = held_prefill.check("serve", rec)
         self.serve_output("serve", cfg, toks, rec.pop("logits"))
         del prompts
         self.free()
@@ -1530,8 +1682,8 @@ class Smoke:
                "prefill_share": prefill_bound / rec["prefill_ms"],
                "decode_bytes": weight_bytes + kv_bytes, "decode_bound_ms": decode_bound,
                "decode_share": decode_bound / rec["decode_ms_per_token"],
-               "graph": graph, "kernel_launches": counts, "card": self.card,
-               "power_limit": self.power_limit}
+               "graph": graph, "prefill_graph": prefill_graph, "kernel_launches": counts,
+               "card": self.card, "power_limit": self.power_limit}
         print(f"serve: prefill {rec['prefill_ms']:.1f} ms (bound {prefill_bound:.1f} ms), "
               f"decode {rec['decode_ms_per_token']:.2f} ms/token as a CUDA graph, "
               f"{graph['eager_ms_per_token']:.2f} eager (bound {decode_bound:.2f} ms), capture "
@@ -1808,7 +1960,7 @@ class Smoke:
                 cfg, ShapeConfig("serve", SERVE_PROMPT, SERVE_B, "prefill"), device=DEVICE,
                 depth=2)))
             rec = {}
-            with GraphHeld(self, tf) as held:
+            with GraphHeld(self, tf) as held, PrefillHeld(self, tf) as held_prefill:
                 toks = serve(name, reduced=False, batch=SERVE_B, prompt_len=SERVE_PROMPT,
                              gen=SERVE_GEN, device=DEVICE, params=params, prompts=[prompt],
                              record=rec)
@@ -1816,6 +1968,7 @@ class Smoke:
                 peak = torch.cuda.max_memory_allocated()
                 counts = {n: fn.launches for n, fn in self.counters.items()}
                 graph = held.check(f"serve {name}", toks, rec)
+                prefill_graph = held_prefill.check(f"serve {name}", rec)
             self.serve_output(f"serve {name}", cfg, toks, rec.pop("logits"))
             row = {"model": name, "layers": cfg.num_layers, "of_layers": depth,
                    "batch": SERVE_B, "prompt_len": SERVE_PROMPT, "gen": SERVE_GEN,
@@ -1823,7 +1976,7 @@ class Smoke:
                    "weight_bytes": sum(p.numel() * p.element_size() for p in params.parameters()),
                    **rec, "max_memory_allocated": peak,
                    **self.serve_bounds(cfg, params, init_caches), "graph": graph,
-                   "kernel_launches": counts, "card": self.card,
+                   "prefill_graph": prefill_graph, "kernel_launches": counts, "card": self.card,
                    "power_limit": self.power_limit}
             row["prefill_share"] = row["prefill_bound_ms"] / rec["prefill_ms"]
             row["decode_share"] = row["decode_bound_ms"] / rec["decode_ms_per_token"]
@@ -1865,15 +2018,16 @@ class Smoke:
         """The share of (token, choice) pairs the MoE dropped in the
         prefill and in the decode steps of one serve of ``prompt``.  The
         count runs in Python at each routing, which a graph's replay skips,
-        so this serve decodes with eager steps (the graph's are bit for bit
-        the same, ``GraphHeld.check``)."""
+        so this serve prefills and decodes with eager steps (the graphs'
+        are bit for bit the same, ``PrefillHeld.check`` and
+        ``GraphHeld.check``)."""
         from repro_torch.launch import serve as serve_mod
         from repro_torch.models import moe as moe_lib
         from repro_torch.models import transformer as tf
 
         class EagerStep:
             def __init__(self, arch, mesh=None, *, device=None):
-                self.cfg, self.logits = arch.model, None
+                self.cfg, self.logits, self.capture_ms = arch.model, None, 0.0
 
             def capture(self, *args):
                 pass
@@ -1882,7 +2036,13 @@ class Smoke:
                 self.logits, caches = tf.decode_step(params, batch, caches, cache_len, self.cfg)
                 return self.logits.argmax(dim=-1), caches
 
+        class EagerPrefill(EagerStep):
+            def __call__(self, params, batch):
+                self.logits, caches = tf.prefill(params, batch, self.cfg)
+                return self.logits.argmax(dim=-1), caches
+
         calls, real, real_step = [], moe_lib._routing, serve_mod.build_serve_step
+        real_prefill = serve_mod.build_prefill_step
 
         def counted(x_flat, *args):
             got = real(x_flat, *args)
@@ -1891,11 +2051,13 @@ class Smoke:
             return got
 
         moe_lib._routing, serve_mod.build_serve_step = counted, EagerStep
+        serve_mod.build_prefill_step = EagerPrefill
         try:
             serve(name, reduced=False, batch=SERVE_B, prompt_len=SERVE_PROMPT, gen=SERVE_GEN,
                   device=DEVICE, params=params, prompts=[prompt])
         finally:
             moe_lib._routing, serve_mod.build_serve_step = real, real_step
+            serve_mod.build_prefill_step = real_prefill
         out = {}
         L = len(params.blocks)
         for phase, part in (("prefill", calls[:L]), ("decode", calls[L:])):

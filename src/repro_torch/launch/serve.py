@@ -21,9 +21,8 @@ import torch
 
 from repro_torch.configs import ARCH_NAMES, get_config
 from repro_torch.device import resolve, same_device
-from repro_torch.launch.step import build_serve_step
+from repro_torch.launch.step import build_prefill_step, build_serve_step
 from repro_torch.models import init_caches, init_params
-from repro_torch.models import transformer as tf
 
 
 def _sync(dev: torch.device) -> None:
@@ -76,12 +75,16 @@ def serve(arch_name: str, *, reduced: bool = True, batch: int = 4,
     (default: the reference's seeded NumPy tokens).
     ``teacher``: tokens (batch, gen, ...) fed to the decode steps in place
     of the generated ones (teacher forcing).  ``record``: a dict that gets
-    ``prefill_ms``, ``capture_ms`` (the decode step's CUDA graph, 0 on the
-    CPU), ``decode_ms_per_token``, ``tokens_per_s`` (host clock, the device
+    ``prefill_ms`` (the whole cold prefill call, its capture included, and
+    the caches' re-homing), ``prefill_capture_ms`` (the prefill step's CUDA
+    graph), ``capture_ms`` (the decode step's; both 0 on the CPU),
+    ``decode_ms_per_token``, ``tokens_per_s`` (host clock, the device
     synchronised) and ``logits``, the prefill's last-position logits
     followed by each decode step's.
 
-    The prefill runs eagerly; the decode steps go through
+    The prefill goes through ``launch.step.build_prefill_step``, as the
+    reference's goes through ``jax.jit`` of its prefill (one layer's CUDA
+    graph replayed over the layers on a card), and the decode steps through
     ``launch.step.build_serve_step``, as the reference's go through
     ``jax.jit(build_serve_step(arch))``, with ``cache_len`` a device scalar.
     """
@@ -113,21 +116,25 @@ def serve(arch_name: str, *, reduced: bool = True, batch: int = 4,
         pre_batch = {"tokens": torch.from_numpy(prompt).to(dev)}
 
     # prefill over the prompt, then copy the caches into max_seq buffers
+    arch = dataclasses.replace(arch, model=cfg)
+    prefill_step = build_prefill_step(arch)
     _sync(dev)
     t0 = time.perf_counter()
-    logits, caches_prompt = tf.prefill(params, pre_batch, cfg)
+    next_tokens, caches_prompt = prefill_step(params, pre_batch)
     caches = rehome_caches(cfg, caches_prompt, batch, max_seq, dev)
     del caches_prompt
     _sync(dev)
     prefill_s = time.perf_counter() - t0
-    kept = [logits] if record is not None else None
+    kept = [prefill_step.logits] if record is not None else None
+    prefill_capture_ms = prefill_step.capture_ms
+    del prefill_step  # its graph's memory pool and slot, before the decode
 
-    next_tokens = logits.argmax(dim=-1).to(torch.int32)  # (B,) or (B,K)
+    next_tokens = next_tokens.to(torch.int32)  # (B,) or (B,K)
     generated = [next_tokens.cpu().numpy()]
     if teacher is not None:
         teacher = torch.as_tensor(np.asarray(teacher), dtype=torch.int32).to(dev)
     # the decode step, captured once its caches are final (after the re-homing)
-    step = build_serve_step(dataclasses.replace(arch, model=cfg), device=dev)
+    step = build_serve_step(arch, device=dev)
     cache_len = torch.tensor(prompt_len, dtype=torch.int32, device=dev)
     t0 = time.perf_counter()
     if gen > 1:
@@ -149,7 +156,8 @@ def serve(arch_name: str, *, reduced: bool = True, batch: int = 4,
     print(f"[{arch_name}] generated {toks.shape} tokens in {dt:.2f}s "
           f"({dt / max(gen - 1, 1) * 1e3:.1f} ms/token) on {dev}")
     if record is not None:
-        record.update(prefill_ms=prefill_s * 1e3, capture_ms=capture_s * 1e3,
+        record.update(prefill_ms=prefill_s * 1e3,
+                      prefill_capture_ms=prefill_capture_ms, capture_ms=capture_s * 1e3,
                       decode_ms_per_token=dt / max(gen - 1, 1) * 1e3,
                       tokens_per_s=batch * (gen - 1) / dt if dt > 0 else float("nan"),
                       logits=kept)

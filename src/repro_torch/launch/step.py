@@ -22,9 +22,13 @@ counterparts of the reference's gradient sharding constraints.
 
 With no mesh the serve step is a ``GraphServeStep``: on a card, one CUDA
 graph replayed a token, the counterpart of the reference's
-``jax.jit(build_serve_step(arch))``.
+``jax.jit(build_serve_step(arch))``; the prefill step is a
+``GraphPrefillStep``: one layer's CUDA graph replayed over the layers, the
+counterpart of the reference's ``jax.jit`` of its scan over the layers.
 """
 from __future__ import annotations
+
+import time
 
 import torch
 from torch.distributed.tensor import DTensor, distribute_tensor
@@ -274,15 +278,142 @@ def build_train_step(arch: ArchConfig, shape: ShapeConfig, mesh=None,
     return sharded_train_step
 
 
+def _copy_by_dtype(dst, src) -> None:
+    """dst[j].copy_(src[j]) for every j: one ``_foreach_copy_`` a dtype,
+    whose list of a single dtype takes the multi-tensor kernel."""
+    groups: dict = {}
+    for d, s in zip(dst, src, strict=True):
+        to, frm = groups.setdefault(d.dtype, ([], []))
+        to.append(d)
+        frm.append(s)
+    for to, frm in groups.values():
+        torch._foreach_copy_(to, frm)
+
+
+class GraphPrefillStep:
+    """The one-device prefill step: one layer's prefill
+    (``tf.prefill_layer``) captured once in a ``torch.cuda.CUDAGraph`` and
+    replayed over the layers, as the reference runs ``jax.jit`` of its
+    ``lax.scan`` over the stacked layers.
+
+    The graph runs on a slot layer (a block built uninitialised on the
+    card) and static buffers for x and the positions; it ends by writing
+    the new x into its x buffer.  Before each replay one
+    ``_foreach_copy_`` a dtype copies that layer's weights into the slot;
+    after it the layer's cache outputs, which the next replay rewrites,
+    are copied into stacked (L, ...) caches at the layer's index.  The
+    embedding, the final norm and the logits run eagerly.
+
+    The first call captures: it warms the body up on a side stream with
+    layer 0's own computation, which stands as layer 0's result, then
+    captures the body on that stream, which executes nothing.  The graph
+    is bound to the batch's keys, shapes and dtypes and to ``cfg``: a call
+    with another batch raises, as do params that are not cfg's
+    ``num_layers`` blocks of the slot's names, shapes and dtypes.  It is
+    not bound to the params, whose values are copied in at every call.
+    Nothing re-captures or falls back to the eager prefill.
+
+    A call returns (next tokens, caches), as the reference's prefill step
+    does; ``logits`` holds the last position's logits and ``capture_ms``
+    the capture's host time (the device synchronised before and after,
+    ``torch.cuda.graph``'s own garbage collection and cache release
+    included; 0.0 on the CPU).  The step runs on the params' device;
+    params on the CPU take the same slot path, the body called eagerly in
+    place of a replay.
+    """
+
+    def __init__(self, cfg):
+        self.cfg = cfg
+        self.graph = self.logits = self.slot = None
+        self.capture_ms = 0.0
+
+    def _layers(self, params, batch) -> list:
+        """Each block's parameters, in the slot's order, after the checks
+        of the batch and the params against what the step is bound to; the
+        slot is built at the first call."""
+        dev = params.embedding.device
+        spec = {k: (tuple(v.shape), v.dtype) for k, v in batch.items()}
+        if self.slot is None:
+            self.slot, self._spec = tf.new_block(self.cfg, dev), spec
+            self._names, self._weights = zip(*self.slot.named_parameters())
+        elif spec != self._spec:
+            raise ValueError(f"prefill step: bound to a batch of {self._spec}, given {spec}")
+        if len(params.blocks) != self.cfg.num_layers:
+            raise ValueError(f"prefill step: bound to {self.cfg.num_layers} layers, the "
+                             f"params have {len(params.blocks)}")
+        layers = []
+        for blk in params.blocks:
+            names, weights = zip(*blk.named_parameters())
+            if names != self._names or any(
+                    w.shape != s.shape or w.dtype != s.dtype or w.device != s.device
+                    for w, s in zip(weights, self._weights)):
+                raise ValueError("prefill step: a block's parameters differ in names, shapes, "
+                                 "dtypes or device from the config's layer")
+            layers.append(weights)
+        return layers
+
+    def _load(self, weights) -> None:
+        """The slot takes one layer's weights."""
+        _copy_by_dtype(self._weights, weights)
+
+    def _capture(self, x, positions):
+        """Layer 0 computed on a side stream (the warm-up), then the body
+        captured on that stream; returns layer 0's (x, cache)."""
+        dev, cfg = x.device, self.cfg
+        self._x, self._positions = x.clone(), positions.clone()
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(side):
+            first = tf.prefill_layer(self.slot, self._x, self._positions, cfg)
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, stream=side):
+            out, self._cache = tf.prefill_layer(self.slot, self._x, self._positions, cfg)
+            self._x.copy_(out)
+        torch.cuda.synchronize(dev)
+        self.capture_ms = (time.perf_counter() - t0) * 1e3
+        self.graph = graph
+        self._x.copy_(first[0])
+        return self._x, first[1]
+
+    def _layer(self, i, x, positions):
+        """Layer i on the slot: (x, cache)."""
+        if x.device.type != "cuda":
+            return tf.prefill_layer(self.slot, x, positions, self.cfg)
+        if self.graph is None:
+            return self._capture(x, positions)
+        if i == 0:
+            self._x.copy_(x)
+            self._positions.copy_(positions)
+        self.graph.replay()
+        return self._x, self._cache
+
+    @torch.no_grad()
+    def __call__(self, params, batch):
+        layers = self._layers(params, batch)
+        x, positions = tf.embed_inputs(params, batch, self.cfg)
+        caches = None
+        for i, weights in enumerate(layers):
+            self._load(weights)
+            x, cache = self._layer(i, x, positions)
+            if caches is None:
+                caches = {k: v.new_empty((len(layers),) + v.shape) for k, v in cache.items()}
+            _copy_by_dtype([caches[k][i] for k in cache], cache.values())
+        self.logits = tf.prefill_logits(params, x, self.cfg)
+        return self.logits.argmax(dim=-1), caches
+
+
 def build_prefill_step(arch: ArchConfig, mesh=None):
-    """prefill_step(params, batch) -> (next tokens, caches); on a mesh the
-    batch is placed by ``batch_specs`` and the tokens come back whole."""
+    """prefill_step(params, batch) -> (next tokens, caches).  With no mesh a
+    ``GraphPrefillStep`` on the params' device, one layer's CUDA graph
+    replayed over the layers on a card; on a mesh the eager ``tf.prefill``,
+    the batch placed by ``batch_specs`` and the tokens coming back whole."""
     cfg = arch.model
+    if mesh is None:
+        return GraphPrefillStep(cfg)
 
     def prefill_step(params, batch):
-        if mesh is None:
-            logits, caches = tf.prefill(params, batch, cfg)
-            return logits.argmax(dim=-1), caches
         with mesh_context(mesh):
             logits, caches = tf.prefill(params, place_batch(arch, batch, mesh, "prefill"), cfg)
             return _scalar(logits).argmax(dim=-1), caches
@@ -397,7 +528,7 @@ def build_serve_step(arch: ArchConfig, mesh=None, *, device=None):
 
 
 __all__ = [
-    "GraphServeStep", "abstract_caches", "abstract_opt_state", "abstract_params",
-    "build_prefill_step", "build_serve_step", "build_train_step", "input_specs",
-    "make_shardings", "place_batch", "place_caches", "place_train_state",
+    "GraphPrefillStep", "GraphServeStep", "abstract_caches", "abstract_opt_state",
+    "abstract_params", "build_prefill_step", "build_serve_step", "build_train_step",
+    "input_specs", "make_shardings", "place_batch", "place_caches", "place_train_state",
 ]

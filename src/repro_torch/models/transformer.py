@@ -12,10 +12,12 @@ names, nesting, layouts and dtypes (``wq`` is (d, Hq*Dh), used as
 ``x @ w``; a block's experts are one (E, d, f) tensor), so that carrying
 weights across (``repro_torch.interop.params_from_jax``) is a copy, not a
 transpose.  The reference's ``lax.scan`` over stacked layers becomes a
-loop over the blocks.  Entry points, as in the reference:
+loop over the blocks (``launch.step.build_prefill_step`` replays one
+captured ``prefill_layer`` over them).  Entry points, as in the reference:
 
   loss_fn(params, batch, cfg)                        training loss (+ MoE aux)
   prefill(params, batch, cfg)                        logits + caches
+  prefill_layer(blk, x, positions, cfg)              one layer of it (the scan body)
   decode_step(params, batch, caches, cache_len, cfg) one-token serve step
 
 Caches are stacked with a leading L: K/V (L, B, S, Hkv, Dh), ring buffers
@@ -134,8 +136,7 @@ class Transformer(nn.Module):
         shape = ((cfg.num_codebooks, cfg.padded_vocab, cfg.d_model)
                  if cfg.num_codebooks > 1 else (cfg.padded_vocab, cfg.d_model))
         self.embedding = _weight(shape, 0.02, generator, dtype, dev)
-        block = rwkv_lib.RWKVBlock if cfg.family == "ssm" else Block
-        self.blocks = nn.ModuleList(block(cfg, dtype, dev, generator)
+        self.blocks = nn.ModuleList(new_block(cfg, dev, generator)
                                     for _ in range(cfg.num_layers))
         self.final_norm = Norm(cfg.d_model, cfg.norm, dtype, dev)
         self.lm_head = (None if cfg.tie_embeddings
@@ -146,6 +147,14 @@ class Transformer(nn.Module):
         x, positions = embed_inputs(self, batch, self.cfg)
         x, _ = backbone(self, x, self.cfg, positions)
         return logits_fn(self, x, self.cfg)
+
+
+def new_block(cfg: ModelConfig, device, generator: torch.Generator | None = None) -> nn.Module:
+    """One layer's parameters on ``device``: a ``RWKVBlock`` for the ssm
+    family, else a ``Block``; drawn from ``generator``, or left
+    uninitialised with none."""
+    block = rwkv_lib.RWKVBlock if cfg.family == "ssm" else Block
+    return block(cfg, _dtype(cfg), device, generator)
 
 
 def init_params(cfg: ModelConfig, generator: torch.Generator, device=None) -> Transformer:
@@ -469,25 +478,40 @@ def decode_step(params, batch, caches, cache_len, cfg: ModelConfig):
     return logits_fn(params, x, cfg)[:, 0], caches
 
 
+def prefill_layer(blk, x, positions, cfg: ModelConfig):
+    """One layer of ``prefill``, the body of the reference's scan over the
+    layers: (x, cache), the cache this layer's part of ``prefill``'s, K/V
+    cut to the last ``cache_seq_len`` positions; for ssm the token shifts
+    and WKV state after the prompt, from a zero state; for hybrid also the
+    Mamba states.  It reads nothing on the host, so that it can be
+    captured in a CUDA graph (``launch.step.build_prefill_step``)."""
+    if cfg.family == "ssm":
+        x, (tm_s, cm_s, wkv_s) = rwkv_lib.rwkv_block(blk, x, cfg)
+        return x, {"tm_shift": tm_s, "cm_shift": cm_s, "wkv": wkv_s}
+    s_cache = cache_seq_len(cfg, x.shape[1])
+    x, _, cache = transformer_block(blk, x, cfg, positions, return_kv=True, mode="prefill")
+    x = shard_hint(x, residual_hint(cfg))
+    cache["k"], cache["v"] = cache["k"][:, -s_cache:], cache["v"][:, -s_cache:]
+    return x, cache
+
+
+def prefill_logits(params, x, cfg: ModelConfig):
+    """The last position's logits of the last layer's output x."""
+    x = apply_norm(x, params.final_norm, cfg.norm)
+    return logits_fn(params, x[:, -1:], cfg)[:, 0]
+
+
 @torch.no_grad()
 def prefill(params, batch, cfg: ModelConfig):
     """Full-sequence forward returning last-position logits + filled caches:
     the K/V of the last window (or all) positions; for ssm the token shifts
-    and WKV state after the prompt; for hybrid also the Mamba states."""
+    and WKV state after the prompt; for hybrid also the Mamba states.  The
+    eager loop over ``prefill_layer``, stacking the layers' caches."""
     x, positions = embed_inputs(params, batch, cfg)
-    S_cache = cache_seq_len(cfg, x.shape[1])
     per_layer = []
     for blk in params.blocks:
-        if cfg.family == "ssm":
-            x, (tm_s, cm_s, wkv_s) = rwkv_lib.rwkv_block(blk, x, cfg)
-            cache = {"tm_shift": tm_s, "cm_shift": cm_s, "wkv": wkv_s}
-        else:
-            x, _, cache = transformer_block(blk, x, cfg, positions, return_kv=True,
-                                            mode="prefill")
-            x = shard_hint(x, residual_hint(cfg))
-            cache["k"], cache["v"] = cache["k"][:, -S_cache:], cache["v"][:, -S_cache:]
+        x, cache = prefill_layer(blk, x, positions, cfg)
         per_layer.append(cache)
     caches = {name: torch.stack([c[name] for c in per_layer]) for name in per_layer[0]}
     del per_layer
-    x = apply_norm(x, params.final_norm, cfg.norm)
-    return logits_fn(params, x[:, -1:], cfg)[:, 0], caches
+    return prefill_logits(params, x, cfg), caches

@@ -1,0 +1,20 @@
+"""Shared by the port's compiled-step tests: a ``TorchDispatchMode`` that
+raises on what a step captured in a CUDA graph cannot do."""
+import torch
+from torch.utils._python_dispatch import TorchDispatchMode
+
+
+class NoHostRead(TorchDispatchMode):
+    """Raises on a read of a tensor's value on the host and on an operation
+    whose output shape depends on the data (``nonzero``, ``masked_select``,
+    indexing by a mask); the message names ``where``."""
+
+    where = "the step"
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        aten = torch.ops.aten
+        if (func.overloadpacket in (aten._local_scalar_dense, aten.nonzero, aten.masked_select)
+                or func.overloadpacket is aten.index and any(
+                    i is not None and i.dtype in (torch.bool, torch.uint8) for i in args[1])):
+            raise RuntimeError(f"{func} inside {self.where}")
+        return func(*args, **(kwargs or {}))

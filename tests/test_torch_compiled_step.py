@@ -22,7 +22,7 @@ torch = pytest.importorskip("torch")
 
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
-from torch.utils._python_dispatch import TorchDispatchMode  # noqa: E402
+from _torch_host_reads import NoHostRead  # noqa: E402
 
 from repro import configs as jconfigs  # noqa: E402
 from repro.models import transformer as jt  # noqa: E402
@@ -92,18 +92,8 @@ def test_tensor_cache_len_is_the_int_path_bit_for_bit(name, max_seq, lens):
             assert torch.equal(by_int[k], by_tensor[k]), f"{k} at cache_len {n}"
 
 
-class _NoHostRead(TorchDispatchMode):
-    """Raises on a read of a tensor's value on the host and on an operation
-    whose output shape depends on the data (``nonzero``, ``masked_select``,
-    indexing by a mask): what a captured step cannot do."""
-
-    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
-        aten = torch.ops.aten
-        if (func.overloadpacket in (aten._local_scalar_dense, aten.nonzero, aten.masked_select)
-                or func.overloadpacket is aten.index and any(
-                    i is not None and i.dtype in (torch.bool, torch.uint8) for i in args[1])):
-            raise RuntimeError(f"{func} inside the decode step")
-        return func(*args, **(kwargs or {}))
+class _NoHostRead(NoHostRead):
+    where = "the decode step"
 
 
 def test_the_mode_catches_host_reads():
