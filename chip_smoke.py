@@ -111,18 +111,28 @@
    and ``arch_step_rows`` on the card for the ten reduced configs.
 8. Trains starcoder2-3b at full width and depth (30 layers, 3.03 B
    parameters, bf16, fp32 masters; B 8 x S 2,048): 8 steps through
-   ``repro_torch.launch.train.train`` with the optimizer state on the card
-   (ms a step, tokens/s, peak memory, the optimizer timed apart, one step
-   under ``torch.profiler``), then 4 steps through ``build_train_step``
-   under a plan with int8 moments and the state in pinned host memory
-   (fetch and offload ms, pinned bytes, peak memory), each beside its
-   bound.  Checks: the same step-0 loss in both runs, finite losses; on a
-   2-layer cut at full width, the optimizer on the host bit for bit equal
-   to the card's, bf16 against fp32 at twice the reference's own gap, and
-   ``apply_updates`` against itself in fp64 on the CPU, shown to reject a
-   dropped bias correction; on the reduced configs, the loss falling over
-   30 steps, a restart from a checkpoint ending near an uninterrupted run,
-   and a bf16 + fp32 + int8 checkpoint round trip bit for bit.
+   ``repro_torch.launch.train.train`` with the optimizer state on the card,
+   which trains through ``launch.step.build_train_step``'s compiled step
+   (the whole step, optimizer included, one CUDA graph replayed a step):
+   ms a step, tokens/s, peak memory, the capture's ms, one warm graph step
+   under ``torch.profiler`` (at most 5 host launch calls), then the
+   optimizer timed apart and one eager step timed and profiled; 4 graph
+   steps against 4 eager steps (the step's body) from the same seed, one
+   run after the other (the params bit for bit, every state tensor's
+   digest alike); then 4 steps under a plan with int8 moments and the
+   state in pinned host memory, which the step updates in place (fetch and
+   offload ms, pinned bytes, the pinned allocator flat after step 0, peak
+   memory), each beside its bound.  Checks: the same step-0 loss in both
+   runs, finite losses; on a 2-layer cut at full width, the graph step bit
+   for bit equal to the eager one with the state on the card and on the
+   host, fp32 and int8 moments, a replay with the step buffer left
+   unfilled shown to fail that comparison, other params refused, the
+   optimizer on the host bit for bit equal to the card's, bf16 against
+   fp32 at twice the reference's own gap, and ``apply_updates`` against
+   itself in fp64 on the CPU, shown to reject a dropped bias correction;
+   on the reduced configs, the loss falling over 30 steps, a restart from
+   a checkpoint ending near an uninterrupted run (both through the graph
+   step), and a bf16 + fp32 + int8 checkpoint round trip bit for bit.
 9. The mesh path (``repro_torch.launch.mesh``, ``sharding``, ``step`` on a
    mesh, ``runtime.compression``, ``launch.dryrun``): on the 2-layer cut of
    8, one step in each sharding mode (2d, fsdp, zero1) on a (1, 1) mesh
@@ -386,6 +396,16 @@ TRAIN_STEPS, TRAIN_HOST_STEPS = 8, 4
 # equal but within TRAIN_EDGE of a rounding edge, where dropping the bias
 # correction must fail.
 TRAIN_CUT_LAYERS, TRAIN_CUT_STEPS, TRAIN_CUT_AT = 2, 3, 100
+# The compiled train step (launch.step.GraphTrainStep) against its eager
+# body, one run after the other from the same seed under deterministic
+# algorithms: on the cut (TRAIN_CUT_STEPS steps, the state on the card and
+# on the host, fp32 and int8 moments) every tensor bit for bit, at full
+# depth TRAIN_GRAPH_STEPS steps, the params bit for bit and every state
+# tensor's digest alike; on the cut, graph steps in the warmup with the step
+# buffer left unfilled (the lr frozen) must differ.  A warm graph step makes
+# at most TRAIN_GRAPH_MAX_CALLS host launch calls: the graph's launch, one
+# copy a batch tensor and the step's fill.
+TRAIN_GRAPH_STEPS, TRAIN_GRAPH_MAX_CALLS = 4, 5
 TRAIN_NARROW = dict(d_model=384, num_heads=12, num_kv_heads=1, head_dim=32, d_ff=1536,
                     vocab_size=4096)
 TRAIN_BF16_LOSS_REL, TRAIN_BF16_GRAD_REL = 4.5e-5, 0.022
@@ -507,6 +527,20 @@ def slot_not_loaded(step, layer: int):
         yield f"layer {layer}'s weights not copied into the slot"
     finally:
         del step._load
+
+
+@contextlib.contextmanager
+def step_not_filled(step):
+    """The compiled train step's fault, undone on exit: each call fills the
+    batch buffers but leaves the step buffer as it was, so each replay
+    computes the lr of the step the buffer last held, as an lr frozen at
+    capture would (``GraphTrainStep._fill``)."""
+    real = step._fill
+    step._fill = lambda batch, n: real(batch, step._step.clone())
+    try:
+        yield "the step buffer left unfilled"
+    finally:
+        del step._fill
 
 
 def rel_l2(pairs) -> float:
@@ -897,6 +931,170 @@ class PrefillHeld:
               f"{slot_bytes}), a warm call {warm_mem}, the eager prefill {eager_mem} "
               f"[{smoke.card}]")
         return out
+
+
+@contextlib.contextmanager
+def deterministic(torch):
+    """Deterministic algorithms while open (warnings, not errors, where an
+    operation has none): two runs of one step give the same bits."""
+    was = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(was)
+
+
+def bits_digest(x) -> tuple[int, int]:
+    """Two int64 sums over a tensor's elements read as signed integers of
+    their width, and over their squares (wrapping): equal for equal bits, and
+    a change of any one element changes the first."""
+    import torch
+
+    w = x.detach().view({1: torch.int8, 2: torch.int16, 4: torch.int32,
+                         8: torch.int64}[x.element_size()]).to(torch.int64)
+    return int(w.sum()), int((w * w).sum())
+
+
+class TrainHeld:
+    """The compiled train step (``launch.step.GraphTrainStep``) held against
+    its eager body.  While open, the step that ``launch.train.train``
+    builds is kept in ``step``, so that the caller can read its capture and
+    profile it on the run's params; ``check`` runs the same steps from the
+    same seed through the graph and eagerly, one run after the other, each
+    freed before the next, and holds them bit for bit."""
+
+    def __init__(self, smoke):
+        self.smoke, self.step = smoke, None
+
+    def __enter__(self):
+        from repro_torch.launch import train as train_mod
+
+        self.train_mod, self.real = train_mod, train_mod.build_train_step
+
+        def recording(*args, **kwargs):
+            self.step = self.real(*args, **kwargs)
+            return self.step
+
+        train_mod.build_train_step = recording
+        return self
+
+    def __exit__(self, *exc):
+        self.train_mod.build_train_step = self.real
+        self.step = None
+
+    def run(self, arch, shape, plan, batches, steps, seed, mode, *, exact=True,
+            refuse=False) -> dict:
+        """``len(steps)`` steps from params seeded with ``seed`` and a fresh
+        state (in pinned memory under a host plan): through a
+        ``GraphTrainStep`` ("graph"), through its body called eagerly with
+        the step as a device tensor ("eager"), or through the graph with
+        ``step_not_filled`` from the second step ("fault").  Returns the
+        losses, ms a step, the capture's ms, the peaks, and the final
+        params and state: copies on the card, or with ``exact`` False the
+        params on the host and a ``bits_digest`` of every state tensor.
+        With ``refuse`` the graph must then refuse other params."""
+        smoke, torch = self.smoke, self.smoke.torch
+        from repro_torch.checkpoint.checkpointer import tree_leaves
+        from repro_torch.core.advise import MemorySpace
+        from repro_torch.core.streaming import offload_params
+        from repro_torch.launch.step import GraphTrainStep, _adamw_cfg, build_train_step
+        from repro_torch.models import init_params
+        from repro_torch.optim import init_state
+
+        cfg = arch.model
+        smoke.free()
+        torch.cuda.reset_peak_memory_stats()
+
+        def fresh(s):
+            return init_params(cfg, torch.Generator(device=DEVICE).manual_seed(s), DEVICE)
+
+        params = fresh(seed)
+        opt = init_state(params, _adamw_cfg(arch, plan))
+        if plan is not None and plan.opt_space is MemorySpace.HOST:
+            opt = offload_params(opt, DEVICE)
+        step = build_train_step(arch, shape, None, plan, device=DEVICE)
+        if not isinstance(step, GraphTrainStep):
+            raise TypeError(f"build_train_step gave {type(step).__name__}, not GraphTrainStep")
+        losses, ms, fault = [], [], None
+        for i, (b, n) in enumerate(zip(batches, steps)):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            if mode == "eager":
+                m = step.body(params, opt, b, torch.tensor(n, dtype=torch.int32, device=DEVICE))[2]
+            else:
+                with (step_not_filled(step) if mode == "fault" and i
+                      else contextlib.nullcontext()) as fault:
+                    m = step(params, opt, b, n)[2]
+            losses.append(float(m["loss"]))
+            ms.append((time.perf_counter() - t0) * 1e3)
+        torch.cuda.synchronize()
+        out = {"losses": losses, "step_ms": ms, "capture_ms": step.capture_ms, "fault": fault,
+               "peak_allocated": torch.cuda.max_memory_allocated(),
+               "peak_reserved": torch.cuda.max_memory_reserved()}
+        if refuse:
+            other = fresh(seed + 1)
+            smoke.expect_raise("the graph train step refuses params it was not captured on",
+                               lambda: step(other, opt, batches[0], steps[0]), ValueError)
+            del other
+        if exact:
+            out["leaves"] = [x.detach().to(DEVICE, copy=True) for x in tree_leaves((params, opt))]
+        else:
+            out["params"] = [p.detach().cpu() for p in params.parameters()]
+            out["digests"] = [bits_digest(x) for x in tree_leaves(opt)]
+        del params, opt, step, m
+        smoke.free()
+        return out
+
+    @staticmethod
+    def differ(a: dict, b: dict) -> tuple[int, int, float]:
+        """(tensors that differ, tensors compared, largest |a - b| over the
+        params and the state copies compared whole) between two runs."""
+        if "leaves" in a:
+            pairs = list(zip(a["leaves"], b["leaves"]))
+            digests = []
+        else:
+            pairs = list(zip(a["params"], b["params"]))
+            digests = list(zip(a["digests"], b["digests"]))
+        apart = [(x, y) for x, y in pairs if not x.equal(y)]
+        worst = max([(x.double() - y.double()).abs().max().item() for x, y in apart],
+                    default=0.0)
+        return (len(apart) + sum(x != y for x, y in digests), len(pairs) + len(digests), worst)
+
+    def check(self, label, arch, shape, plan, batches, steps, seed, *, exact=True,
+              refuse=False):
+        """A graph run and an eager run of ``steps`` (``run``); they must
+        agree bit for bit, or, where a second eager run differs from the
+        first, within that gap, which is printed.  Returns (the record, the
+        graph run, the eager run)."""
+        smoke = self.smoke
+        graph = self.run(arch, shape, plan, batches, steps, seed, "graph", exact=exact,
+                         refuse=refuse)
+        eager = self.run(arch, shape, plan, batches, steps, seed, "eager", exact=exact)
+        apart, of, worst = self.differ(graph, eager)
+        loss_gap = max(abs(x - y) for x, y in zip(graph["losses"], eager["losses"]))
+        kept = ("losses", "step_ms", "capture_ms", "peak_allocated", "peak_reserved")
+        rec = {"steps": list(steps), "tensors_differing": apart, "tensors": of,
+               "max_abs_diff": worst, "loss_max_abs_diff": loss_gap,
+               "graph": {k: graph[k] for k in kept}, "eager": {k: eager[k] for k in kept}}
+        ok = apart == 0 and loss_gap == 0.0
+        if not ok:  # the gap between two eager runs, which the graph is held to
+            again = self.run(arch, shape, plan, batches, steps, seed, "eager", exact=exact)
+            gap = self.differ(eager, again)
+            gap_loss = max(abs(x - y) for x, y in zip(eager["losses"], again["losses"]))
+            rec["eager_vs_eager"] = {"tensors_differing": gap[0], "max_abs_diff": gap[2],
+                                     "loss_max_abs_diff": gap_loss}
+            ok = gap[0] > 0 and worst <= gap[2] and loss_gap <= gap_loss
+            del again
+        smoke.expect(f"{label}: {len(steps)} steps through the CUDA graph == eager, "
+                     f"{apart} of {of} tensors differ (max |diff| {worst:.3e}, loss "
+                     f"{loss_gap:.3e})" + (f", two eager runs: {rec['eager_vs_eager']}"
+                                           if "eager_vs_eager" in rec else ", bit for bit"), ok)
+        print(f"{label}: ms a step, graph {graph['step_ms']} (capture {graph['capture_ms']:.1f}),"
+              f" eager {eager['step_ms']}; peaks allocated / reserved, graph "
+              f"{graph['peak_allocated']} / {graph['peak_reserved']}, eager "
+              f"{eager['peak_allocated']} / {eager['peak_reserved']} [{smoke.card}]")
+        return rec, graph, eager
 
 
 class Smoke:
@@ -2801,14 +2999,17 @@ class Smoke:
 
     def train_full(self, tf) -> dict:
         """launch.train.train at full width and depth with the state on the
-        card: ms a step, tokens/s and peak memory; the optimizer (clip and
-        apply_updates) timed apart; one step under torch.profiler."""
+        card, through the compiled step (a ``GraphTrainStep``): ms a step,
+        tokens/s, peak memory and the capture's ms; one warm graph step
+        under torch.profiler (host launch calls, busy share); then, the
+        graph released, the optimizer (clip and apply_updates) timed apart
+        and one eager step (the step's body) timed and profiled."""
         import tempfile
 
         torch = self.torch
         from repro_torch.configs import ShapeConfig, get_config
         from repro_torch.data import DataConfig, synthetic_batches
-        from repro_torch.launch.step import _adamw_cfg, build_train_step
+        from repro_torch.launch.step import GraphTrainStep, _adamw_cfg
         from repro_torch.launch.train import train
         from repro_torch.optim import apply_updates, clip_by_global_norm, warmup_cosine
 
@@ -2817,16 +3018,28 @@ class Smoke:
         shape = ShapeConfig("train", TRAIN_S, TRAIN_B, "train")
         self.start_app(f"train {TRAIN_MODEL} full width B={TRAIN_B} S={TRAIN_S}, "
                        f"{TRAIN_STEPS} steps, the state on the card")
-        with tempfile.TemporaryDirectory() as d:
+        with TrainHeld(self) as held, tempfile.TemporaryDirectory() as d:
             (params, opt), report = train(TRAIN_MODEL, reduced=False, steps=TRAIN_STEPS,
                                           batch=TRAIN_B, seq=TRAIN_S, ckpt_dir=d,
                                           checkpoint_every=10**6, device=DEVICE)
-        torch.cuda.synchronize()
-        peak = torch.cuda.max_memory_allocated()
+            torch.cuda.synchronize()
+            peak, reserved = torch.cuda.max_memory_allocated(), torch.cuda.max_memory_reserved()
+            step = held.step
+            self.expect("train() trains through a GraphTrainStep that captured its graph",
+                        isinstance(step, GraphTrainStep) and step.graph is not None)
+            batch = self.device_batch(next(synthetic_batches(cfg, shape, DataConfig(seed=0))))
+            graph_prof = self.profile_calls((("train_step graph", lambda: step(
+                params, opt, batch, TRAIN_STEPS), 1),), top=12)["train_step graph"]
+            body, capture_ms = step.body, step.capture_ms
+            del step
         counts = {name: fn.launches for name, fn in self.counters.items()}
+        calls = graph_prof["host_launch_calls"]
+        self.expect(f"a warm graph train step makes {calls:g} host launch calls "
+                    f"{graph_prof['host_launch_calls_by_api']} (<= {TRAIN_GRAPH_MAX_CALLS})",
+                    calls <= TRAIN_GRAPH_MAX_CALLS)
+        self.free()
         ms = statistics.median(report.step_times[1:]) * 1e3
         n_params = sum(p.numel() for p in params.parameters())
-        batch = self.device_batch(next(synthetic_batches(cfg, shape, DataConfig(seed=0))))
         names, leaves = zip(*params.named_parameters())
         loss = tf.loss_fn(params, batch, cfg, remat=arch.train.remat)
         grads = dict(zip(names, torch.autograd.grad(loss, leaves)))
@@ -2841,39 +3054,80 @@ class Smoke:
 
         opt_ms = self.time_ms(optimizer)
         del grads
-        step = build_train_step(arch, shape, None, None, total_steps=TRAIN_STEPS, device=DEVICE)
-        prof = self.profile_calls((("train_step", lambda: step(params, opt, batch, TRAIN_STEPS),
-                                    1),), top=12)["train_step"]
-        del params, opt, batch, step, leaves
+        self.free()
+        n = torch.tensor(TRAIN_STEPS, dtype=torch.int32, device=DEVICE)
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        body(params, opt, batch, n)
+        torch.cuda.synchronize()
+        eager_ms = (time.perf_counter() - t0) * 1e3
+        eager_peak = torch.cuda.max_memory_allocated()
+        prof = self.profile_calls((("train_step eager", lambda: body(params, opt, batch, n),
+                                    1),), top=12)["train_step eager"]
+        del params, opt, batch, leaves, body
         self.free()
         bound = self.train_bound(cfg, n_params, 4)
         out = {"model": TRAIN_MODEL, "batch": TRAIN_B, "seq": TRAIN_S, "steps": TRAIN_STEPS,
                "params": n_params, "losses": report.losses, "step_ms": report.step_times,
                "ms_per_step": ms, "tokens_per_s": TRAIN_B * TRAIN_S / ms * 1e3,
-               "max_memory_allocated": peak, "optimizer_ms": opt_ms,
+               "capture_ms": capture_ms, "eager_ms_per_step": eager_ms,
+               "max_memory_allocated": peak, "max_memory_reserved": reserved,
+               "eager_max_memory_allocated": eager_peak, "optimizer_ms": opt_ms,
                "optimizer_share": opt_ms / ms, **bound, "share": bound["bound_ms"] / ms,
-               "profile": prof, "kernel_launches": counts}
-        print(f"train {TRAIN_MODEL}: {ms:.1f} ms a step (median of steps 1-{TRAIN_STEPS - 1}), "
-              f"{out['tokens_per_s']:.0f} tokens/s, bound {bound['bound_ms']:.1f} ms "
-              f"({bound['bound_compute_ms']:.1f} compute + {bound['bound_optimizer_ms']:.1f} "
-              "optimizer; "
-              f"share {out['share']:.3f}), optimizer {opt_ms:.1f} ms ({out['optimizer_share']:.3f}"
-              f" of a step), peak {peak} bytes, losses {report.losses}; the model calls the "
-              f"plain attention, kernel launches {counts}")
+               "profile": prof, "graph_profile": graph_prof, "kernel_launches": counts}
+        print(f"train {TRAIN_MODEL}: {ms:.1f} ms a step as a CUDA graph (median of steps "
+              f"1-{TRAIN_STEPS - 1}; capture {capture_ms:.1f} ms in step 0), one eager step "
+              f"{eager_ms:.1f} ms, {out['tokens_per_s']:.0f} tokens/s, bound "
+              f"{bound['bound_ms']:.1f} ms ({bound['bound_compute_ms']:.1f} compute + "
+              f"{bound['bound_optimizer_ms']:.1f} optimizer; share {out['share']:.3f}), "
+              f"optimizer {opt_ms:.1f} ms ({out['optimizer_share']:.3f} of a step); host launch "
+              f"calls a step {calls:g} graph / {prof['host_launch_calls']:g} eager, busy "
+              f"{graph_prof['device_busy_share'] or float('nan'):.3f} / "
+              f"{prof['device_busy_share'] or float('nan'):.3f}; peak {peak} bytes allocated "
+              f"({reserved} reserved), an eager step's {eager_peak}; losses {report.losses}; "
+              f"the model calls the plain attention, kernel launches {counts} [{self.card}]")
         return out
+
+    def train_graph_check(self) -> dict:
+        """At full depth, TRAIN_GRAPH_STEPS steps from TRAIN_CUT_AT through
+        the graph, then as many eager steps from the same seed and batches,
+        one run after the other under deterministic algorithms: the params
+        bit for bit and every state tensor's digest alike."""
+        import itertools
+
+        from repro_torch.configs import ShapeConfig, get_config
+        from repro_torch.data import DataConfig, synthetic_batches
+
+        arch = get_config(TRAIN_MODEL)
+        shape = ShapeConfig("train", TRAIN_S, TRAIN_B, "train")
+        print(f"== train graph check: {TRAIN_MODEL} full width and depth, {TRAIN_GRAPH_STEPS} "
+              "steps through the graph against as many eager steps")
+        self.free()
+        batches = [self.device_batch(b) for b in itertools.islice(
+            synthetic_batches(arch.model, shape, DataConfig(seed=1)), TRAIN_GRAPH_STEPS)]
+        steps = range(TRAIN_CUT_AT, TRAIN_CUT_AT + TRAIN_GRAPH_STEPS)
+        with deterministic(self.torch):
+            rec, graph, eager = TrainHeld(self).check(
+                "full depth", arch, shape, None, batches, steps, seed=0, exact=False)
+        del graph, eager, batches
+        self.free()
+        return rec
 
     def train_host(self, init_params) -> dict:
         """The same model and batches under a plan with int8 moments and the
-        optimizer state in pinned host memory, through build_train_step:
-        ms a step, fetch and offload ms, pinned host bytes, peak memory."""
+        optimizer state in pinned host memory, through build_train_step (a
+        ``GraphTrainStep``, whose offload writes the pinned state in place):
+        ms a step, the pinned allocator after every step, one warm graph step
+        under torch.profiler, one eager step (the step's body, the graph
+        released), fetch and in-place offload ms, peak memory."""
         torch = self.torch
         from repro_torch.checkpoint.checkpointer import tree_leaves
         from repro_torch.configs import MeshConfig, ShapeConfig, get_config
         from repro_torch.core.advise import MemorySpace
         from repro_torch.core.residency import MemoryBudget, ResidencyPlan
-        from repro_torch.core.streaming import fetch_params, offload_params
+        from repro_torch.core.streaming import fetch_params, offload_into, offload_params
         from repro_torch.data import DataConfig, synthetic_batches
-        from repro_torch.launch.step import _adamw_cfg, build_train_step
+        from repro_torch.launch.step import GraphTrainStep, _adamw_cfg, build_train_step
         from repro_torch.optim import init_state
 
         arch = get_config(TRAIN_MODEL)
@@ -2887,75 +3141,98 @@ class Smoke:
         torch.cuda.reset_peak_host_memory_stats()
         pinned_before = torch.cuda.host_memory_stats().get("allocated_bytes.current")
         params = init_params(cfg, torch.Generator(device=DEVICE).manual_seed(0), DEVICE)
-        state = [offload_params(init_state(params, _adamw_cfg(arch, plan)), DEVICE)]
-        host_bytes = sum(x.numel() * x.element_size() for x in tree_leaves(state[0]))
+        state = offload_params(init_state(params, _adamw_cfg(arch, plan)), DEVICE)
+        host_bytes = sum(x.numel() * x.element_size() for x in tree_leaves(state))
         self.expect("the host plan's optimizer state is in pinned host memory",
-                    all(x.is_pinned() for x in tree_leaves(state[0])))
+                    all(x.is_pinned() for x in tree_leaves(state)))
         step = build_train_step(arch, shape, None, plan, total_steps=TRAIN_STEPS, device=DEVICE)
         gen = synthetic_batches(cfg, shape, DataConfig(seed=0))
         losses, times = [], []
+        pinned_steps = [torch.cuda.host_memory_stats().get("allocated_bytes.current")]
         for i in range(TRAIN_HOST_STEPS):
             batch = self.device_batch(next(gen))
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            # the step gets the only reference to the pinned state, so that
-            # the state it has fetched is freed before it offloads the new one
-            params, new, metrics = step(params, state.pop(), batch, i)
-            state.append(new)
+            params, state, metrics = step(params, state, batch, i)
             losses.append(float(metrics["loss"]))
             times.append(time.perf_counter() - t0)
-            del new, batch, metrics
+            pinned_steps.append(torch.cuda.host_memory_stats().get("allocated_bytes.current"))
+            del metrics
         peak = torch.cuda.max_memory_allocated()
+        self.expect(f"the host plan trains through a GraphTrainStep; its pinned allocator is "
+                    f"flat after step 0 (allocated bytes before and after each step: "
+                    f"{pinned_steps})",
+                    isinstance(step, GraphTrainStep) and len(set(pinned_steps[1:])) == 1)
+        graph_prof = self.profile_calls((("train_step host graph", lambda: step(
+            params, state, batch, TRAIN_HOST_STEPS), 1),))["train_step host graph"]
+        calls = graph_prof["host_launch_calls"]
+        self.expect(f"a warm graph step of the host plan makes {calls:g} host launch calls "
+                    f"{graph_prof['host_launch_calls_by_api']} (<= {TRAIN_GRAPH_MAX_CALLS})",
+                    calls <= TRAIN_GRAPH_MAX_CALLS)
         pinned = {k: v for k, v in torch.cuda.host_memory_stats().items()
                   if k.startswith("allocated_bytes.") or k.startswith("num_host_alloc")}
         pinned["allocated_bytes.current_before"] = pinned_before
+        pinned["allocated_bytes.current_by_step"] = pinned_steps
+        body, capture_ms = step.body, step.capture_ms
+        del step
+        self.free()
+        n = torch.tensor(TRAIN_HOST_STEPS, dtype=torch.int32, device=DEVICE)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        body(params, state, batch, n)
+        torch.cuda.synchronize()
+        eager_ms = (time.perf_counter() - t0) * 1e3
         fetch_ms, offload_ms = [], []
         for _ in range(3):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            on_card = fetch_params(state[0], DEVICE)
+            on_card = fetch_params(state, DEVICE)
             torch.cuda.synchronize()
             t1 = time.perf_counter()
-            back = offload_params(on_card, DEVICE)
+            offload_into(state, on_card)
+            torch.cuda.synchronize()
             offload_ms.append((time.perf_counter() - t1) * 1e3)
             fetch_ms.append((t1 - t0) * 1e3)
-            del on_card, back
+            del on_card
         n_params = sum(p.numel() for p in params.parameters())
-        del params, state, step
+        del params, state, batch, body
         self.free()
         ms = statistics.median(times[1:]) * 1e3
         bound = self.train_bound(cfg, n_params, 1)
         link = host_bytes / self.rates["h2d_pinned"] * 1e3 + host_bytes / self.rates["d2h_pinned"] * 1e3
         out = {"steps": TRAIN_HOST_STEPS, "losses": losses, "step_ms": [t * 1e3 for t in times],
                "ms_per_step": ms, "tokens_per_s": TRAIN_B * TRAIN_S / ms * 1e3,
+               "capture_ms": capture_ms, "eager_ms_per_step": eager_ms,
                "max_memory_allocated": peak, "host_state_bytes": host_bytes,
                "pinned_allocator": pinned, "fetch_ms": statistics.median(fetch_ms),
-               "offload_ms": statistics.median(offload_ms), **bound,
-               "link_ms_at_measured_copy_rates": link,
+               "offload_ms": statistics.median(offload_ms), "graph_profile": graph_prof,
+               **bound, "link_ms_at_measured_copy_rates": link,
                "bound_ms_with_link": bound["bound_ms"] + link,
                "share": (bound["bound_ms"] + link) / ms}
-        print(f"train host plan: {ms:.1f} ms a step, fetch {out['fetch_ms']:.1f} ms, offload "
-              f"{out['offload_ms']:.1f} ms of {host_bytes} bytes, bound {bound['bound_ms']:.1f} + "
-              f"link {link:.1f} ms (share {out['share']:.3f}), peak {peak} bytes, pinned "
-              f"{pinned}, losses {losses}")
+        print(f"train host plan: {ms:.1f} ms a step as a CUDA graph (capture {capture_ms:.1f} "
+              f"ms), one eager step {eager_ms:.1f} ms, fetch {out['fetch_ms']:.1f} ms, offload "
+              f"in place {out['offload_ms']:.1f} ms of {host_bytes} bytes, bound "
+              f"{bound['bound_ms']:.1f} + link {link:.1f} ms (share {out['share']:.3f}), host "
+              f"launch calls a step {calls:g}, busy "
+              f"{graph_prof['device_busy_share'] or float('nan'):.3f}, peak {peak} bytes, pinned "
+              f"{pinned}, losses {losses} [{self.card}]")
         return out
 
     def train_cut_checks(self, tf, init_params) -> dict:
-        """On a 2-layer cut of the model at full width: the optimizer on the
-        host against the card (bit for bit), bf16 against fp32, and
-        apply_updates against itself in fp64 on the CPU, with one fault."""
+        """On a 2-layer cut of the model at full width: the compiled step
+        against its eager body (bit for bit, the state on the card and on
+        the host, fp32 and int8 moments; the step buffer left unfilled must
+        fail; other params refused), the optimizer on the host against the
+        card (bit for bit), bf16 against fp32, and apply_updates against
+        itself in fp64 on the CPU, with one fault."""
         import dataclasses
         import itertools
 
         torch = self.torch
-        from repro_torch.checkpoint.checkpointer import tree_leaves
         from repro_torch.configs import MeshConfig, ShapeConfig, get_config
         from repro_torch.core.advise import MemorySpace
         from repro_torch.core.residency import MemoryBudget, ResidencyPlan
-        from repro_torch.core.streaming import offload_params
         from repro_torch.data import DataConfig, synthetic_batches
-        from repro_torch.launch.step import _adamw_cfg, build_train_step
-        from repro_torch.optim import adamw
 
         arch = get_config(TRAIN_MODEL)
         arch = dataclasses.replace(arch, model=dataclasses.replace(
@@ -2971,35 +3248,43 @@ class Smoke:
         def fresh(seed):
             return init_params(cfg, torch.Generator(device=DEVICE).manual_seed(seed), DEVICE)
 
-        out = {"host_vs_device": {}, "seconds": {}}
+        out = {"host_vs_device": {}, "graph_vs_eager": {}, "seconds": {}}
         t0 = time.perf_counter()
-        deterministic = torch.are_deterministic_algorithms_enabled()
-        torch.use_deterministic_algorithms(True, warn_only=True)
-        try:
+        held = TrainHeld(self)
+        steps = range(TRAIN_CUT_AT, TRAIN_CUT_AT + TRAIN_CUT_STEPS)
+        with deterministic(torch):
             for int8 in (False, True):
                 finals = []
+                label = "int8" if int8 else "fp32"
                 for space in (MemorySpace.DEVICE, MemorySpace.HOST):
                     plan = ResidencyPlan(cfg.name, shape.name, MeshConfig(), MemoryBudget(),
                                          opt_space=space, int8_moments=int8,
                                          remat=arch.train.remat)
-                    params = fresh(1)
-                    opt = adamw.init_state(params, _adamw_cfg(arch, plan))
-                    if space is MemorySpace.HOST:
-                        opt = offload_params(opt, DEVICE)
-                    step = build_train_step(arch, shape, None, plan, device=DEVICE)
-                    for i, b in enumerate(batches):
-                        params, opt, _ = step(params, opt, b, TRAIN_CUT_AT + i)
-                    finals.append([x.detach().to(DEVICE, copy=True) for x in tree_leaves((params, opt))])
-                    del params, opt, step
+                    where = "host" if space is MemorySpace.HOST else "card"
+                    rec, graph, _ = held.check(f"c: {label} moments, the state on the {where}",
+                                               arch, shape, plan, batches, steps, seed=1,
+                                               refuse=not int8 and where == "card")
+                    out["graph_vs_eager"][f"{label}_{where}"] = rec
+                    finals.append(graph["leaves"])
+                    del graph, _
                 differ = sum(not torch.equal(x, y) for x, y in zip(*finals))
-                label = "int8" if int8 else "fp32"
                 out["host_vs_device"][label] = differ
                 self.expect(f"c: {TRAIN_CUT_STEPS} steps with the optimizer on the host == on the "
                             f"card, {label} moments, bit for bit ({differ} of {len(finals[0])} "
                             "tensors differ)", differ == 0)
                 del finals
-        finally:
-            torch.use_deterministic_algorithms(deterministic)
+            # the graph's fault: the lr moves from step to step in the warmup
+            warm = range(1, 1 + TRAIN_CUT_STEPS)
+            rec, _, eager = held.check("c: fp32 moments, the state on the card, warmup steps",
+                                       arch, shape, None, batches, warm, seed=1)
+            out["graph_vs_eager"]["fp32_card_warmup"] = rec
+            faulty = held.run(arch, shape, None, batches, warm, seed=1, mode="fault")
+            apart, of, worst = held.differ(faulty, eager)
+            fault = faulty["fault"]
+            out["fault"] = {"fault": fault, "tensors_differing": apart, "max_abs_diff": worst}
+            self.expect(f"c: the comparison rejects graph steps with {fault} ({apart} of {of} "
+                        f"tensors differ from eager, max |diff| {worst:.3e})", apart > 0)
+            del _, eager, faulty
         self.free()
         out["seconds"]["c"] = time.perf_counter() - t0
 
@@ -3183,12 +3468,16 @@ class Smoke:
 
     def train_path(self, tf, init_params):
         """The training path: starcoder2-3b at full width with the state on
-        the card and under the escalated plan, checks a-i."""
+        the card and under the escalated plan, through the compiled step,
+        which is held against its eager body at full depth and on the cut;
+        checks a-i."""
         seconds = {}
         t0 = time.perf_counter()
         full = self.train_full(tf)
-        self.train_full_peak = full["max_memory_allocated"]
+        self.train_full_peak = full["eager_max_memory_allocated"]  # what the dry-run traces
         seconds["full"] = time.perf_counter() - t0
+        graph = self.train_graph_check()
+        seconds["graph_check"] = time.perf_counter() - t0 - sum(seconds.values())
         # the cut's checks before the host plan, whose pinned blocks stay
         # cached in host memory, beside the CPU's fp64 reference
         cut = self.train_cut_checks(tf, init_params)
@@ -3217,8 +3506,8 @@ class Smoke:
         seconds["drills"] = time.perf_counter() - t0 - sum(seconds.values())
         print("train path: " + ", ".join(f"{k} {v:.1f} s" for k, v in seconds.items()))
         print(json.dumps({"train_path": {
-            "full": full, "host_plan": host, "peak_drop": drop, "loss_fell": fell,
-            "cut": cut, "drills": drills, "seconds": seconds,
+            "full": full, "graph_check": graph, "host_plan": host, "peak_drop": drop,
+            "loss_fell": fell, "cut": cut, "drills": drills, "seconds": seconds,
             "power_limit": self.power_limit}}))
 
     def mesh_path(self, init_params, dryrun_proc):
@@ -3289,7 +3578,9 @@ class Smoke:
                     del params, opt, step
                     self.free()
                     params, opt = fresh()
-                    step = stp.build_train_step(arch, shape, None, device=DEVICE)
+                    # the unsharded step run eagerly (the graph step's body),
+                    # as the sharded steps run
+                    step = stp.build_train_step(arch, shape, None, device=DEVICE).body
                     (_, opt, m2), _ = timed(lambda: step(params, opt, batch, TRAIN_CUT_AT))
                     want = dict(params.named_parameters())
                     loss_ref = float(m2["loss"])

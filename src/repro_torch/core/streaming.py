@@ -4,7 +4,8 @@ The counterpart of ``repro.core.streaming``.  ``fetch_params`` copies
 parameters that a ResidencyPlan places in HOST space to the card at their
 point of use; from pinned memory the copies are asynchronous on the current
 stream, so they overlap what the host queues next.  ``offload_params``
-evicts them to pinned host memory.
+evicts them to pinned host memory; ``offload_into`` writes them back into
+the pinned tensors they were fetched from.
 
 Where the caller runs on the CPU there is no host tier: the copies are
 identities and the plan is carried analytically, as in the reference.
@@ -65,6 +66,28 @@ def offload_params(tree, device=None):
     return out
 
 
+def offload_into(dst, src):
+    """Device->host eviction of ``src``, a tree that ``fetch_params`` made
+    from ``dst``, back into ``dst``'s own tensors (pinned memory): each copy
+    is issued on the current stream and none is waited for, so the caller
+    waits for the stream before it reads ``dst`` on the host.  A tensor that
+    is its own source (the CPU's fetch is the identity) is left as it is; a
+    DTensor's local shard is written.  Returns ``dst``.  Unlike
+    ``offload_params`` it allocates nothing and does not synchronise, so a
+    CUDA graph can capture it."""
+    if isinstance(dst, dict):
+        for k, d in dst.items():
+            offload_into(d, src[k])
+    elif isinstance(dst, (list, tuple)):
+        for d, s in zip(dst, src, strict=True):
+            offload_into(d, s)
+    elif isinstance(dst, torch.Tensor) and dst is not src:
+        if isinstance(dst, DTensor):
+            dst, src = dst.to_local(), src.to_local()
+        dst.copy_(src, non_blocking=True)
+    return dst
+
+
 def _save_all(ctx, op, *args, **kwargs):
     return CheckpointPolicy.MUST_SAVE
 
@@ -113,7 +136,10 @@ def checkpoint_layer(fn, kind: str):
     is ``torch.utils.checkpoint`` (non-reentrant), "dots" selective
     checkpointing with ``remat_policy("dots")``, and "offload" runs ``fn``
     under ``torch.autograd.graph.save_on_cpu(pin_memory=True)`` when its
-    tensors are on a CUDA device ("full" on the CPU)."""
+    tensors are on a CUDA device ("full" on the CPU).  The checkpoints keep
+    no RNG state (``preserve_rng_state=False``): no layer draws random
+    numbers, and the compiled train step captures the recompute in a CUDA
+    graph."""
     policy = remat_policy(kind)  # raises on an unknown name
     if kind == "none":
         return fn
@@ -125,8 +151,9 @@ def checkpoint_layer(fn, kind: str):
             with torch.autograd.graph.save_on_cpu(pin_memory=True):
                 return fn(*args)
         if kind == "dots":
-            return checkpoint(fn, *args, use_reentrant=False, context_fn=functools.partial(
-                create_selective_checkpoint_contexts, policy))
-        return checkpoint(fn, *args, use_reentrant=False)
+            return checkpoint(fn, *args, use_reentrant=False, preserve_rng_state=False,
+                              context_fn=functools.partial(
+                                  create_selective_checkpoint_contexts, policy))
+        return checkpoint(fn, *args, use_reentrant=False, preserve_rng_state=False)
 
     return wrapped

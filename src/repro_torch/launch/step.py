@@ -10,7 +10,8 @@ embeddings + (t,h,w) M-RoPE position streams.
 
 The ResidencyPlan threads through the train step: remat policy, int8
 moments, and the optimizer state's placement (pinned host memory, fetched
-to the card for the update and offloaded after it).
+to the card for the update and written back into the same pinned tensors
+after it).
 
 On a mesh the parameters are DTensors placed by ``param_specs`` and the
 optimizer state by ``opt_specs`` (``place_train_state``); the batch is
@@ -24,19 +25,24 @@ With no mesh the serve step is a ``GraphServeStep``: on a card, one CUDA
 graph replayed a token, the counterpart of the reference's
 ``jax.jit(build_serve_step(arch))``; the prefill step is a
 ``GraphPrefillStep``: one layer's CUDA graph replayed over the layers, the
-counterpart of the reference's ``jax.jit`` of its scan over the layers.
+counterpart of the reference's ``jax.jit`` of its scan over the layers;
+the train step is a ``GraphTrainStep``: the whole step, optimizer
+included, in one CUDA graph that updates the state in place, the
+counterpart of the reference's ``jax.jit`` with donation.
 """
 from __future__ import annotations
 
+import contextlib
 import time
 
 import torch
 from torch.distributed.tensor import DTensor, distribute_tensor
 
+from repro_torch.checkpoint.checkpointer import tree_leaves
 from repro_torch.configs.base import ArchConfig, ShapeConfig
 from repro_torch.core.advise import MemorySpace
 from repro_torch.core.residency import ResidencyPlan
-from repro_torch.core.streaming import fetch_params, offload_params
+from repro_torch.core.streaming import fetch_params, offload_into
 from repro_torch.device import resolve, same_device
 from repro_torch.launch.mesh import mesh_context
 from repro_torch.launch.sharding import (
@@ -199,12 +205,18 @@ def build_train_step(arch: ArchConfig, shape: ShapeConfig, mesh=None,
     """Returns train_step(params, opt_state, batch, step) -> (params,
     opt_state, metrics) for a ``Transformer`` and a state of
     ``optim.init_state`` on ``device`` (default: the card; raises without
-    one).  The parameters are updated in place; with the plan's optimizer
-    on the host, ``opt_state`` comes in and goes out in pinned memory.
+    one).  The parameters and the state are updated in place; with the
+    plan's optimizer on the host, ``opt_state`` stays in pinned memory: the
+    step fetches it to the card and writes the update back into the same
+    tensors, and waits for the card before it returns.
 
-    With a ``mesh``, params and state are placed by ``place_train_state``
-    and ``batch`` is the global batch (plain tensors, the same on every
-    rank), which each microbatch takes by ``batch_specs``.
+    With no mesh the step is a ``GraphTrainStep``: on a card the whole step
+    in one CUDA graph, the counterpart of the reference's ``jax.jit`` with
+    donation.  Remat "offload" keeps the eager step (its
+    ``save_on_cpu(pin_memory=True)`` allocates pinned memory in every
+    forward), as does a ``mesh``: params and state placed by
+    ``place_train_state``, and ``batch`` the global batch (plain tensors,
+    the same on every rank), which each microbatch takes by ``batch_specs``.
 
     Gradients: with one microbatch in the parameters' dtype, as the
     reference's; with ``microbatches`` > 1 summed over the microbatches in
@@ -261,21 +273,148 @@ def build_train_step(arch: ArchConfig, shape: ShapeConfig, mesh=None,
             loss = loss / micro
         grads, gnorm = clip_by_global_norm(dict(zip(names, grads)), arch.train.grad_clip)
         if opt_on_host:
-            opt_state = fetch_params(opt_state, dev)       # host -> card
-        params, opt_state = apply_updates(params, grads, opt_state, acfg, lr)
-        if opt_on_host:
-            opt_state = offload_params(opt_state, dev)     # card -> host
+            on_card = fetch_params(opt_state, dev)          # host -> card
+            apply_updates(params, grads, on_card, acfg, lr)
+            offload_into(opt_state, on_card)                # card -> the same host tensors
+        else:
+            apply_updates(params, grads, opt_state, acfg, lr)
         return params, opt_state, {"loss": _scalar(loss), "grad_norm": _scalar(gnorm),
                                    "lr": lr}
 
-    if mesh is None:
-        return train_step
+    if mesh is None and remat != "offload":
+        return GraphTrainStep(train_step, dev, opt_on_host)
 
-    def sharded_train_step(params, opt_state, batch, step):
-        with mesh_context(mesh):
-            return train_step(params, opt_state, batch, step)
+    def eager_train_step(params, opt_state, batch, step):
+        with mesh_context(mesh) if mesh is not None else contextlib.nullcontext():
+            out = train_step(params, opt_state, batch, step)
+        _await_host(dev, opt_on_host)
+        return out
 
-    return sharded_train_step
+    return eager_train_step
+
+
+def _graph_capture(graph):
+    """``torch.cuda.graph`` for ``graph`` and the stream it captures on:
+    torch's one capture stream, on which a step warms up too.  A new stream
+    for each step would keep a cuBLAS workspace of its own for the rest of
+    the process."""
+    capture = torch.cuda.graph(graph)
+    return capture, capture.capture_stream
+
+
+def _await_host(dev: torch.device, opt_on_host: bool) -> None:
+    """With the optimizer state on the host, wait for the card: the step's
+    copies back into the pinned state are asynchronous, and the caller may
+    read it on the host at once."""
+    if opt_on_host and dev.type == "cuda":
+        torch.cuda.current_stream(dev).synchronize()
+
+
+class GraphTrainStep:
+    """The one-device train step: the lr (``warmup_cosine``), the loss and
+    its gradients under the config's remat (microbatches accumulated in
+    fp32), the clipping and the AdamW update, with the plan's fetch and
+    offload, captured in one ``torch.cuda.CUDAGraph`` and replayed at every
+    call, as the reference runs ``jax.jit(step, donate_argnums=(0, 1))``.
+
+    ``body(params, opt_state, batch, step)`` is the step's computation,
+    which the graph captures; called directly it is the eager step (no wait
+    for the card).  The parameters and the optimizer state are updated in
+    place, the counterpart of the reference's donation: a call returns
+    ``(params, opt_state, metrics)`` with the objects it was given.  With
+    the state on the host the body copies the update back into the pinned
+    tensors it fetched, and the call waits for the card before it returns.
+
+    The graph reads static buffers, one per batch tensor and the step as a
+    0-d int32 on the card, which each call fills first (``fill_`` for an
+    int, ``copy_`` for a tensor), so the lr is computed from the step in
+    the graph.  The first call runs the body eagerly on a side stream,
+    which stands as that step's result, releases the cached blocks the
+    warm-up left, and captures the body on that stream, which executes
+    nothing; every later call is one ``replay()``.  ``capture_ms`` is the
+    capture's host time (the device synchronised before and after; 0.0 on
+    the CPU).  The metrics (``loss``, ``grad_norm``, ``lr``) are 0-d outputs
+    of the graph, which the next replay rewrites.
+
+    From its first call the step is bound to the params and state objects
+    and the tensors they hold, and to the batch's keys, shapes and dtypes:
+    a call with others raises.  It never re-captures and never falls back
+    to the eager step.  On the CPU it runs the body eagerly on the same
+    buffers in place of a replay.
+    """
+
+    def __init__(self, body, device, opt_on_host: bool):
+        self.body, self.device, self.opt_on_host = body, torch.device(device), opt_on_host
+        self.graph = self.metrics = None
+        self.capture_ms = 0.0
+        self._bound = None
+
+    @staticmethod
+    def _pointers(params, opt_state) -> tuple:
+        return tuple(x.data_ptr() for x in tree_leaves((params, opt_state)))
+
+    def _bind(self, params, opt_state, batch) -> None:
+        """Binds the step at its first call; later, raises for inputs other
+        than those it is bound to."""
+        spec = {k: (tuple(v.shape), v.dtype) for k, v in batch.items()}
+        if self._bound is None:
+            dev = next(params.parameters()).device
+            if not same_device(dev, self.device):
+                raise ValueError(f"train step: the params are on {dev}, the step on "
+                                 f"{self.device}")
+            self._bound = (params, opt_state, self._pointers(params, opt_state), spec)
+            self._batch = {k: torch.empty_like(v, device=dev) for k, v in batch.items()}
+            self._step = torch.zeros((), dtype=torch.int32, device=dev)
+            return
+        bound_params, bound_state, pointers, bound_spec = self._bound
+        if (params is not bound_params or opt_state is not bound_state
+                or self._pointers(params, opt_state) != pointers):
+            raise ValueError("train step: bound to other params or optimizer state")
+        if spec != bound_spec:
+            raise ValueError(f"train step: bound to a batch of {bound_spec}, given {spec}")
+
+    def _fill(self, batch, step) -> None:
+        for k, v in batch.items():
+            self._batch[k].copy_(v)
+        if isinstance(step, torch.Tensor):
+            self._step.copy_(step)
+        else:
+            self._step.fill_(step)
+
+    def _capture(self, params, opt_state) -> dict:
+        """The first step computed on a side stream (the warm-up), then the
+        body captured on that stream; returns the first step's metrics."""
+        dev = self.device
+        graph = torch.cuda.CUDAGraph()
+        capture, side = _graph_capture(graph)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(side):
+            first = self.body(params, opt_state, self._batch, self._step)[2]
+        torch.cuda.synchronize(dev)
+        # the warm-up's transients, else the graph's pool holds a second copy
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        with capture:
+            self.metrics = self.body(params, opt_state, self._batch, self._step)[2]
+        torch.cuda.synchronize(dev)
+        self.capture_ms = (time.perf_counter() - t0) * 1e3
+        self.graph = graph
+        for k, v in first.items():
+            self.metrics[k].copy_(v)
+        return self.metrics
+
+    def __call__(self, params, opt_state, batch, step):
+        self._bind(params, opt_state, batch)
+        self._fill(batch, step)
+        if self.device.type != "cuda":
+            metrics = self.body(params, opt_state, self._batch, self._step)[2]
+        elif self.graph is None:
+            metrics = self._capture(params, opt_state)
+        else:
+            self.graph.replay()
+            metrics = self.metrics
+        _await_host(self.device, self.opt_on_host)
+        return params, opt_state, dict(metrics)
 
 
 def _copy_by_dtype(dst, src) -> None:
@@ -361,14 +500,14 @@ class GraphPrefillStep:
         captured on that stream; returns layer 0's (x, cache)."""
         dev, cfg = x.device, self.cfg
         self._x, self._positions = x.clone(), positions.clone()
-        side = torch.cuda.Stream(dev)
+        graph = torch.cuda.CUDAGraph()
+        capture, side = _graph_capture(graph)
         side.wait_stream(torch.cuda.current_stream(dev))
         with torch.cuda.stream(side):
             first = tf.prefill_layer(self.slot, self._x, self._positions, cfg)
         torch.cuda.synchronize(dev)
         t0 = time.perf_counter()
-        graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph, stream=side):
+        with capture:
             out, self._cache = tf.prefill_layer(self.slot, self._x, self._positions, cfg)
             self._x.copy_(out)
         torch.cuda.synchronize(dev)
@@ -475,7 +614,8 @@ class GraphServeStep:
         self._batch = {k: torch.empty_like(v) for k, v in batch.items()}
         self._cache_len = torch.empty((), dtype=torch.int32, device=dev)
         self._fill(batch, cache_len)
-        side = torch.cuda.Stream(dev)
+        graph = torch.cuda.CUDAGraph()
+        capture, side = _graph_capture(graph)
         side.wait_stream(torch.cuda.current_stream(dev))
         with torch.cuda.stream(side):
             scratch = {k: v.clone() for k, v in caches.items()}
@@ -483,8 +623,7 @@ class GraphServeStep:
                 tf.decode_step(params, self._batch, scratch, self._cache_len, self.cfg)
             del scratch
         torch.cuda.current_stream(dev).wait_stream(side)
-        graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph, stream=side):
+        with capture:
             logits, _ = tf.decode_step(params, self._batch, caches, self._cache_len, self.cfg)
             nxt = logits.argmax(dim=-1)
         self.graph, self.logits, self._next = graph, logits, nxt
@@ -528,7 +667,8 @@ def build_serve_step(arch: ArchConfig, mesh=None, *, device=None):
 
 
 __all__ = [
-    "GraphPrefillStep", "GraphServeStep", "abstract_caches", "abstract_opt_state",
-    "abstract_params", "build_prefill_step", "build_serve_step", "build_train_step",
-    "input_specs", "make_shardings", "place_batch", "place_caches", "place_train_state",
+    "GraphPrefillStep", "GraphServeStep", "GraphTrainStep", "abstract_caches",
+    "abstract_opt_state", "abstract_params", "build_prefill_step", "build_serve_step",
+    "build_train_step", "input_specs", "make_shardings", "place_batch", "place_caches",
+    "place_train_state",
 ]

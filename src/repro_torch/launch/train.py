@@ -8,6 +8,10 @@ there) trains the arch's reduced config; ``train(..., reduced=False)`` is
 the full config, which only the card holds.  Integrates the AdamW(+int8)
 optimizer, the synthetic pipeline, checkpoint/restart via TrainRunner and
 the straggler watchdog, on the card unless the caller asks for the CPU.
+It trains through ``build_train_step``'s ``GraphTrainStep``: on a card
+each step after the first is one replay of a CUDA graph that updates the
+params and the optimizer state in place, and a restart restores the
+checkpoint into those same tensors.
 Random weights come from a seeded ``torch.Generator`` (they cannot match
 ``jax.random``'s; ``params=`` takes weights carried across from JAX).
 """

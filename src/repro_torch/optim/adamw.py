@@ -196,7 +196,9 @@ def clip_by_global_norm(grads: dict, max_norm: float):
     """Scales ``grads`` (name -> tensor) in place by min(1, max_norm /
     norm), each in fp32 and back to its dtype; returns (grads, norm)."""
     norm = global_norm(grads)
-    limit = torch.tensor(max_norm, dtype=torch.float32, device=norm.device)
+    # built on the norm's device, not copied from the host: a CUDA graph
+    # captures the step
+    limit = torch.full((), max_norm, dtype=torch.float32, device=norm.device)
     scale = torch.clamp(limit / torch.clamp(norm, min=1e-12), max=1.0)
     for g in grads.values():
         g.copy_(g.to(torch.float32) * scale)

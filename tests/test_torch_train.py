@@ -30,11 +30,8 @@ import jax.numpy as jnp  # noqa: E402
 
 from repro import configs as jconfigs  # noqa: E402
 from repro.configs.base import MeshConfig as JMesh  # noqa: E402
-from repro.configs.base import ShapeConfig as JShape  # noqa: E402
 from repro.configs.base import UMConfig as JUM  # noqa: E402
 from repro.core import residency as jres  # noqa: E402
-from repro.core.advise import MemorySpace as JSpace  # noqa: E402
-from repro.launch import step as jstep  # noqa: E402
 from repro.launch.train import train as jtrain  # noqa: E402
 from repro.models import transformer as jt  # noqa: E402
 from repro.optim import adamw as jadamw  # noqa: E402
@@ -51,20 +48,15 @@ from repro_torch.models import transformer as tt  # noqa: E402
 from repro_torch.optim import adamw as tadamw  # noqa: E402
 from repro_torch.optim import schedule as tschedule  # noqa: E402
 from repro_torch.runtime import InjectedFault, TrainRunner  # noqa: E402
+from _torch_train_case import STEP_CASES, check_train_step  # noqa: E402
+from _torch_train_case import archs as _archs  # noqa: E402
+from _torch_train_case import np64 as _np  # noqa: E402
 
 SHAPES = ("train_4k", "prefill_32k", "decode_32k", "long_500k")
 HBM = {"16GiB": jres.HBM_PER_DEVICE_BYTES, "85e9": 85e9}
 STATE_RTOL = 1e-6
 EDGE = 1e-3
-STEP_TOL = 1e-5
 TRAIN_RTOL = 1e-4
-TINY_GRAD = 1e-6  # 100 x Adam's eps
-
-
-def _np(a) -> np.ndarray:
-    if isinstance(a, torch.Tensor):
-        return a.detach().double().numpy()
-    return np.asarray(a, np.float64)
 
 
 # ---------------------------------------------------------------------------
@@ -517,77 +509,14 @@ def test_straggler_watchdog(tmp_path):
 # The train step and the driver against JAX
 # ---------------------------------------------------------------------------
 
-def _archs(arch_name, **train_kw):
-    """The reduced arch on both sides, with train settings replaced."""
-    out = []
-    for mod in (jconfigs, tconfigs):
-        a = mod.get_config(arch_name)
-        out.append(dataclasses.replace(a, model=a.model.reduce(),
-                                       train=dataclasses.replace(a.train, **train_kw)))
-    return out
-
-
-def _plans(jarch, tarch, **kw):
-    return (jres.ResidencyPlan(jarch.name, "t", JMesh(), jres.MemoryBudget(),
-                               **{k: (JSpace.HOST if v is TSpace.HOST else v)
-                                  for k, v in kw.items()}),
-            tres.ResidencyPlan(tarch.name, "t", tconfigs.MeshConfig(), tres.MemoryBudget(),
-                               **kw))
-
-
-@pytest.mark.parametrize("case", ["fp32", "micro2", "host_int8"])
+@pytest.mark.parametrize("case", STEP_CASES)
 def test_train_step_matches_jax(case):
     """One ``build_train_step`` step (step 5, past a warmup of 2) on
     reduced starcoder2-3b in fp32 from JAX's weights: loss, grad norm, lr,
     parameters and state against JAX's jitted step; ``micro2`` against
     JAX's fp32-accumulating scan over 2 microbatches; ``host_int8`` with a
     plan that puts int8 moments on the host (the identity on the CPU)."""
-    jarch, tarch = _archs("starcoder2-3b", warmup_steps=2, learning_rate=3e-3,
-                          microbatches=2 if case == "micro2" else 1)
-    plans = (_plans(jarch, tarch, opt_space=TSpace.HOST, int8_moments=True)
-             if case == "host_int8" else (None, None))
-    cfg = jarch.model
-    B, S = 4, 32
-    jtree = jax.jit(lambda k: jt.init_params(k, cfg))(jax.random.key(2))
-    toks = np.random.default_rng(7).integers(0, cfg.vocab_size, (B, S)).astype(np.int32)
-    batch = {"tokens": toks, "labels": np.roll(toks, -1, axis=1)}
-    jstate = jadamw.init_state(jtree, jstep._adamw_cfg(jarch, plans[0]))
-    model = params_from_jax(jtree, cfg, "cpu")
-    tstate = opt_state_from_jax(jstate, model)
-    jtree0 = jtree
-
-    def jgrad(tree, b):
-        return jax.jit(jax.grad(lambda p: jt.loss_fn(p, jax.tree.map(jnp.asarray, b), cfg)))(tree)
-
-    jfn = jax.jit(jstep.build_train_step(jarch, JShape("t", S, B, "train"), None, plans[0],
-                                         total_steps=10))
-    jtree, jstate, jm = jfn(jtree, jstate, jax.tree.map(jnp.asarray, batch), jnp.int32(5))
-    tfn = tstep.build_train_step(tarch, tconfigs.ShapeConfig("t", S, B, "train"), None,
-                                 plans[1], total_steps=10, device="cpu")
-    _, tstate, tm = tfn(model, tstate, {k: torch.from_numpy(v) for k, v in batch.items()}, 5)
-    for k in ("loss", "grad_norm", "lr"):
-        assert float(tm[k]) == pytest.approx(float(jm[k]), rel=STEP_TOL), k
-    # Adam moves a weight by about lr whatever its gradient's size; where
-    # the gradient is near eps (1e-8), that move follows the gradient's
-    # rounding, so those weights are held to the step's size instead
-    grads = dict(params_from_jax(jgrad(jtree0, batch), cfg, "cpu").named_parameters())
-    lr = float(jm["lr"])
-    ref = opt_state_from_jax(jstate, model)
-    assert int(tstate["step"]) == int(ref["step"]) == 1
-    params = dict(model.named_parameters())
-    for n, s in tstate["leaves"].items():
-        g = _np(grads[n])
-        tiny = (np.abs(g) < TINY_GRAD) & (g != 0)  # zero: the padded vocab rows
-        assert tiny.mean() < 1e-2, n
-        for k, x in [("param", params[n])] + sorted(s.items()):
-            if x.dtype == torch.int8:
-                continue
-            got, want = _np(x), _np(ref["leaves"][n]["master" if k == "param" else k])
-            if k in ("param", "master"):
-                assert np.all(np.abs(got[tiny] - want[tiny]) <= 2 * lr), (n, k)
-                got, want = got[~tiny], want[~tiny]
-            np.testing.assert_allclose(got, want, rtol=STEP_TOL, atol=STEP_TOL,
-                                       err_msg=f"{n} {k}")
+    check_train_step(case, tensor_step=False)
 
 
 def test_microbatch_grads_accumulate_in_fp32():
