@@ -83,8 +83,9 @@
    ``PrefetchIterator`` at depths 0/1/2 beside a device workload of about
    the batch's copy time (every batch held bit for bit), ``fetch_params`` /
    ``offload_params`` of one full-width layer, and the four remat
-   policies on a 2-layer full-width model.  With two cards, launches each
-   kernel on device 1 after device 0.
+   policies on a 2-layer full-width model ("offload", which recomputes as
+   the reference's does, bit for bit "full" with "full"'s peak).  With two
+   cards, launches each kernel on device 1 after device 0.
 7. The UM simulator and the paper's sweep engine (``repro_torch.core.
    simulator``, ``repro_torch.umbench``), NumPy on the card's host: the
    1,152-cell extended matrix run serially from the main thread (no cell in
@@ -108,7 +109,9 @@
    in-process (exit 0); the KV-serving demo; ``repro_torch.bench.run
    --fast --json`` into a temporary directory (the five claims met, every
    cell equal to the committed artifact's, that artifact's hash unchanged);
-   and ``arch_step_rows`` on the card for the ten reduced configs.
+   and ``arch_step_rows`` on the card for the ten reduced configs, each
+   train and decode step captured as a CUDA graph and its replays timed
+   (the captures' seconds printed apart).
 8. Trains starcoder2-3b at full width and depth (30 layers, 3.03 B
    parameters, bf16, fp32 masters; B 8 x S 2,048): 8 steps through
    ``repro_torch.launch.train.train`` with the optimizer state on the card,
@@ -125,7 +128,10 @@
    memory), each beside its bound.  Checks: the same step-0 loss in both
    runs, finite losses; on a 2-layer cut at full width, the graph step bit
    for bit equal to the eager one with the state on the card and on the
-   host, fp32 and int8 moments, a replay with the step buffer left
+   host, fp32 and int8 moments, and under the planner's last escalation
+   (int8 moments on the host, remat "offload": bit for bit the same plan
+   under "full", at most 5 host launch calls a warm step, the pinned
+   allocator flat after step 0), a replay with the step buffer left
    unfilled shown to fail that comparison, other params refused, the
    optimizer on the host bit for bit equal to the card's, bf16 against
    fp32 at twice the reference's own gap, and ``apply_updates`` against
@@ -343,7 +349,11 @@ SWEEP_FIELDS = ("total_s", "completed", "faults", "evictions")
 SWEEP_MAX_S = 90.0
 PREFETCH_MODEL, PREFETCH_B, PREFETCH_S = "qwen2-vl-2b", 8, 4096
 PREFETCH_STEPS, PREFETCH_DISTINCT, PREFETCH_WARM = 16, 4, 3
-REMAT_S, REMAT_ATOL = 2048, 1e-5
+# remat_path: each policy's loss and gradients within REMAT_ATOL of
+# "none"'s; "offload" (the reference's policy saves and offloads nothing and
+# recomputes as "full") bit for bit "full"'s, its peak above the weights
+# within REMAT_PEAK_TOL of "full"'s.
+REMAT_S, REMAT_ATOL, REMAT_PEAK_TOL = 2048, 1e-5, 0.01
 DECODE_PROFILE_STEPS = 4
 # The other families, served as qwen2-7b is (B 8, 2,048-token prompts, 32
 # tokens) at full width and cut in depth to FAMILY_LAYERS: mixtral-8x22b
@@ -984,7 +994,7 @@ class TrainHeld:
         self.step = None
 
     def run(self, arch, shape, plan, batches, steps, seed, mode, *, exact=True,
-            refuse=False) -> dict:
+            refuse=False, probe=False) -> dict:
         """``len(steps)`` steps from params seeded with ``seed`` and a fresh
         state (in pinned memory under a host plan): through a
         ``GraphTrainStep`` ("graph"), through its body called eagerly with
@@ -993,7 +1003,10 @@ class TrainHeld:
         losses, ms a step, the capture's ms, the peaks, and the final
         params and state: copies on the card, or with ``exact`` False the
         params on the host and a ``bits_digest`` of every state tensor.
-        With ``refuse`` the graph must then refuse other params."""
+        With ``refuse`` the graph must then refuse other params; with
+        ``probe`` the run also records the pinned allocator's bytes before
+        the first step and after each, and profiles one more warm step
+        (after the final tensors are copied) with ``Smoke.profile_calls``."""
         smoke, torch = self.smoke, self.smoke.torch
         from repro_torch.checkpoint.checkpointer import tree_leaves
         from repro_torch.core.advise import MemorySpace
@@ -1017,6 +1030,7 @@ class TrainHeld:
         if not isinstance(step, GraphTrainStep):
             raise TypeError(f"build_train_step gave {type(step).__name__}, not GraphTrainStep")
         losses, ms, fault = [], [], None
+        pinned = [torch.cuda.host_memory_stats().get("allocated_bytes.current")]
         for i, (b, n) in enumerate(zip(batches, steps)):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
@@ -1028,6 +1042,7 @@ class TrainHeld:
                     m = step(params, opt, b, n)[2]
             losses.append(float(m["loss"]))
             ms.append((time.perf_counter() - t0) * 1e3)
+            pinned.append(torch.cuda.host_memory_stats().get("allocated_bytes.current"))
         torch.cuda.synchronize()
         out = {"losses": losses, "step_ms": ms, "capture_ms": step.capture_ms, "fault": fault,
                "peak_allocated": torch.cuda.max_memory_allocated(),
@@ -1042,6 +1057,10 @@ class TrainHeld:
         else:
             out["params"] = [p.detach().cpu() for p in params.parameters()]
             out["digests"] = [bits_digest(x) for x in tree_leaves(opt)]
+        if probe:
+            out["pinned_by_step"] = pinned
+            out["profile"] = smoke.profile_calls((("warm graph step", lambda: step(
+                params, opt, batches[-1], steps[-1] + 1), 1),))["warm graph step"]
         del params, opt, step, m
         smoke.free()
         return out
@@ -1062,21 +1081,23 @@ class TrainHeld:
         return (len(apart) + sum(x != y for x, y in digests), len(pairs) + len(digests), worst)
 
     def check(self, label, arch, shape, plan, batches, steps, seed, *, exact=True,
-              refuse=False):
-        """A graph run and an eager run of ``steps`` (``run``); they must
-        agree bit for bit, or, where a second eager run differs from the
-        first, within that gap, which is printed.  Returns (the record, the
-        graph run, the eager run)."""
+              refuse=False, probe=False):
+        """A graph run and an eager run of ``steps`` (``run``, ``probe`` for
+        the graph run); they must agree bit for bit, or, where a second
+        eager run differs from the first, within that gap, which is printed.
+        Returns (the record, the graph run, the eager run)."""
         smoke = self.smoke
         graph = self.run(arch, shape, plan, batches, steps, seed, "graph", exact=exact,
-                         refuse=refuse)
+                         refuse=refuse, probe=probe)
         eager = self.run(arch, shape, plan, batches, steps, seed, "eager", exact=exact)
         apart, of, worst = self.differ(graph, eager)
         loss_gap = max(abs(x - y) for x, y in zip(graph["losses"], eager["losses"]))
         kept = ("losses", "step_ms", "capture_ms", "peak_allocated", "peak_reserved")
         rec = {"steps": list(steps), "tensors_differing": apart, "tensors": of,
                "max_abs_diff": worst, "loss_max_abs_diff": loss_gap,
-               "graph": {k: graph[k] for k in kept}, "eager": {k: eager[k] for k in kept}}
+               "graph": {k: graph[k] for k in kept + ("pinned_by_step", "profile")
+                         if k in graph},
+               "eager": {k: eager[k] for k in kept}}
         ok = apart == 0 and loss_gap == 0.0
         if not ok:  # the gap between two eager runs, which the graph is held to
             again = self.run(arch, shape, plan, batches, steps, seed, "eager", exact=exact)
@@ -2531,7 +2552,8 @@ class Smoke:
 
     def remat_path(self, tf, init_params) -> dict:
         """Loss and gradients of a 2-layer full-width qwen2-7b in fp32 under
-        each remat policy, held to "none"; the peak device memory of each."""
+        each remat policy, held to "none", "offload" bit for bit to "full";
+        the peak device memory of each, "offload"'s held to "full"'s."""
         import dataclasses
 
         torch = self.torch
@@ -2552,7 +2574,7 @@ class Smoke:
             checkpoint_layer(lambda y: (y * 2).sin(), kind)(x).sum().backward()
         torch.cuda.synchronize()
         first_use_s = time.perf_counter() - t0
-        out, ref = {"checkpoint_first_use_s": first_use_s}, None
+        out, ref, full = {"checkpoint_first_use_s": first_use_s}, None, None
         for kind in ("none", "full", "dots", "offload"):
             params.zero_grad(set_to_none=True)
             self.free()
@@ -2577,11 +2599,28 @@ class Smoke:
                             f"{row['loss_err']:.3e}, grad err {row['grad_max_abs_err']:.3e}"
                             f" <= {REMAT_ATOL})", row["loss_err"] <= REMAT_ATOL
                             and row["grad_max_abs_err"] <= REMAT_ATOL)
+            if kind == "full":
+                full = (loss.detach(), [x.clone() for x in grads])
+            elif kind == "offload":
+                apart = sum(not x.equal(y) for x, y in zip(grads, full[1]))
+                peak_rel = row["peak_above_params"] / out["full"]["peak_above_params"] - 1
+                row.update(grads_apart_from_full=apart, peak_rel_to_full=peak_rel,
+                           full_ms=out["full"]["ms"])
+                self.expect(f"remat offload: loss and gradients == full's bit for bit ("
+                            f"{apart} of {len(grads)} gradients apart, loss "
+                            f"{loss.item()!r} / {full[0].item()!r}), as the reference's "
+                            "offload recomputes", apart == 0 and loss.equal(full[0]))
+                self.expect(f"remat offload: peak {row['peak_above_params']} bytes above the "
+                            f"params, full's {out['full']['peak_above_params']} ("
+                            f"{peak_rel:+.4f}, limit {REMAT_PEAK_TOL}) [{self.card}]",
+                            abs(peak_rel) <= REMAT_PEAK_TOL)
             out[kind] = row
-            print(f"remat {kind}: {row['ms']:.1f} ms, peak {row['max_memory_allocated']} "
-                  f"bytes ({row['peak_above_params']} above what was allocated before)")
+            print(f"remat {kind}: {row['ms']:.1f} ms"
+                  + (f" (full {row['full_ms']:.1f} ms)" if kind == "offload" else "")
+                  + f", peak {row['max_memory_allocated']} bytes ({row['peak_above_params']} "
+                  f"above what was allocated before) [{self.card}]")
             del loss, grads
-        del params, ref
+        del params, ref, full
         self.free()
         return out
 
@@ -2951,15 +2990,20 @@ class Smoke:
         runner = self.sweep_runner(bench_run, artifact_rows)
 
         t1 = time.perf_counter()
-        lm_rows = arch_step_rows(device=DEVICE)
+        captures = {}
+        lm_rows = arch_step_rows(device=DEVICE, capture_s=captures)
         lm_s = time.perf_counter() - t1
-        steps = {}
+        steps, capture_s = {}, {}
         for row in lm_rows[1:]:
             _, arch, op, us, _ = row.split(",")
             steps.setdefault(arch, {})[op] = float(us)
-            print(f"sweep {row} [{self.card}]")
-        self.expect(f"sweep arch_step_rows: {len(steps)} configs on the card ({lm_s:.3f} s)",
-                    len(lm_rows) == 21 and len(steps) == 10
+            capture_s.setdefault(arch, {})[op] = captures.get((arch, op))
+            print(f"sweep {row} (a CUDA graph's replay; capture {captures.get((arch, op))} s) "
+                  f"[{self.card}]")
+        self.expect(f"sweep arch_step_rows: {len(steps)} configs on the card, every row timed "
+                    f"from a CUDA graph's replays ({len(captures)} captures, "
+                    f"{sum(captures.values()):.3f} s of {lm_s:.3f} s)",
+                    len(lm_rows) == 21 and len(steps) == 10 and len(captures) == 20
                     and all(v > 0 for ops in steps.values() for v in ops.values()))
 
         wall = time.perf_counter() - t0
@@ -2969,7 +3013,8 @@ class Smoke:
             "card": self.card, "power_limit": self.power_limit, "sample": sample,
             "h100_host": h100, "cli": {"rc": rc, "wall_s": cli_s},
             "demo": {"served": len(served), "wall_s": demo_s}, "runner": runner,
-            "arch_step_us": steps, "arch_step_wall_s": lm_s, "wall_s": wall}}))
+            "arch_step_us": steps, "arch_step_capture_s": capture_s,
+            "arch_step_wall_s": lm_s, "wall_s": wall}}))
 
     # -- the training path -------------------------------------------------
 
@@ -3221,10 +3266,12 @@ class Smoke:
     def train_cut_checks(self, tf, init_params) -> dict:
         """On a 2-layer cut of the model at full width: the compiled step
         against its eager body (bit for bit, the state on the card and on
-        the host, fp32 and int8 moments; the step buffer left unfilled must
-        fail; other params refused), the optimizer on the host against the
-        card (bit for bit), bf16 against fp32, and apply_updates against
-        itself in fp64 on the CPU, with one fault."""
+        the host, fp32 and int8 moments, and the planner's last escalation:
+        int8 moments on the host under remat "offload"; the step buffer left
+        unfilled must fail; other params refused), the optimizer on the host
+        against the card (bit for bit), "offload" against "full" (bit for
+        bit), bf16 against fp32, and apply_updates against itself in fp64
+        on the CPU, with one fault."""
         import dataclasses
         import itertools
 
@@ -3272,7 +3319,11 @@ class Smoke:
                 self.expect(f"c: {TRAIN_CUT_STEPS} steps with the optimizer on the host == on the "
                             f"card, {label} moments, bit for bit ({differ} of {len(finals[0])} "
                             "tensors differ)", differ == 0)
+                host_full = finals[1] if int8 else None
                 del finals
+            out["graph_vs_eager"]["int8_host_offload"] = self.train_offload_plan(
+                held, arch, shape, batches, steps, host_full)
+            del host_full
             # the graph's fault: the lr moves from step to step in the warmup
             warm = range(1, 1 + TRAIN_CUT_STEPS)
             rec, _, eager = held.check("c: fp32 moments, the state on the card, warmup steps",
@@ -3303,6 +3354,39 @@ class Smoke:
         del batches
         self.free()
         return out
+
+    def train_offload_plan(self, held, arch, shape, batches, steps, host_full) -> dict:
+        """The planner's last escalation on the cut: int8 moments, the state
+        in pinned host memory and remat "offload".  build_train_step must
+        give it a GraphTrainStep (``TrainHeld.run`` raises otherwise); the
+        graph against its eager body bit for bit; the graph's final tensors
+        bit for bit those of the same plan under "full" (``host_full``); a
+        warm graph step in at most TRAIN_GRAPH_MAX_CALLS host launch calls;
+        the pinned allocator flat after step 0."""
+        from repro_torch.configs import MeshConfig
+        from repro_torch.core.advise import MemorySpace
+        from repro_torch.core.residency import MemoryBudget, ResidencyPlan
+
+        plan = ResidencyPlan(arch.model.name, shape.name, MeshConfig(), MemoryBudget(),
+                             opt_space=MemorySpace.HOST, int8_moments=True, remat="offload")
+        rec, graph, _ = held.check("c: int8 moments, the state on the host, remat offload",
+                                   arch, shape, plan, batches, steps, seed=1, probe=True)
+        apart = sum(not x.equal(y) for x, y in zip(graph["leaves"], host_full, strict=True))
+        rec["tensors_apart_from_full"] = apart
+        self.expect(f"c: remat offload == remat full, int8 moments on the host, "
+                    f"{TRAIN_CUT_STEPS} graph steps bit for bit ({apart} of {len(host_full)} "
+                    "tensors differ)", apart == 0)
+        prof, pinned = graph["profile"], graph["pinned_by_step"]
+        calls = prof["host_launch_calls"]
+        self.expect(f"c: a warm graph step under remat offload on the host plan makes "
+                    f"{calls:g} host launch calls {prof['host_launch_calls_by_api']} (<= "
+                    f"{TRAIN_GRAPH_MAX_CALLS}) [{self.card}]", calls <= TRAIN_GRAPH_MAX_CALLS)
+        self.expect(f"c: under remat offload on the host plan the pinned allocator is flat "
+                    f"after step 0 (allocated bytes before and after each step: {pinned})",
+                    len(set(pinned[1:])) == 1)
+        del graph, _
+        self.free()
+        return rec
 
     def update_vs_fp64(self, tf, params, arch, batch) -> dict:
         """apply_updates on the card from a state one step old, against the

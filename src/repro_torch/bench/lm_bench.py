@@ -1,10 +1,13 @@
 """LM micro-benchmarks: the counterpart of ``benchmarks/lm_bench.py``.
 
 ``arch_step_rows`` (the ``lm`` block of ``repro_torch.bench.run``): one
-train step (loss and its gradients) and one decode step of each config
-reduced to 2 layers (``ModelConfig.reduce``), at B 2 x S 64, through the
-port's own ``init_params``, ``init_caches``, ``loss_fn`` and
-``decode_step``.
+train step (loss and its gradients) and one decode step (its logits) of
+each config reduced to 2 layers (``ModelConfig.reduce``), at B 2 x S 64,
+through the port's own ``init_params``, ``init_caches``, ``loss_fn`` and
+``decode_step`` (``step_bodies``).  On a CUDA card each is captured once as
+a CUDA graph and its replays are timed, as the reference times its
+``jax.jit`` of the same functions after the compile; on the CPU, which has
+no graph, the bodies run eagerly.
 
 ``kernel_rows``: kernel call timings at the JAX benchmark's four shapes (BS
 n=2^14, matmul 256x512x256, flash B=1 S=256 Hq=4 Hkv=2 Dh=64, FDTD3d
@@ -14,8 +17,9 @@ say so and carry no time.
 
     PYTHONPATH=src python -m repro_torch.bench.lm_bench [--device cpu]
 
-On a CUDA card each row is timed with CUDA events after one warm-up call;
-on the CPU with the host clock.
+On a CUDA card each row is timed with CUDA events after one warm-up call
+(of the graph's replay for the ``lm`` rows); on the CPU with the host
+clock.
 """
 from __future__ import annotations
 
@@ -27,6 +31,7 @@ import torch
 from repro_torch.configs import ARCH_NAMES, get_config
 from repro_torch.device import resolve
 from repro_torch.kernels import black_scholes, fdtd3d_step, flash_attention, matmul
+from repro_torch.launch.step import _graph_capture
 from repro_torch.models import decode_step, init_caches, init_params, loss_fn
 
 HEADER = "table,kernel,variant,us_per_call,derived"
@@ -55,10 +60,58 @@ def _time_us(fn, dev: torch.device, reps: int = REPS) -> float:
     return start.elapsed_time(end) / reps * 1e3
 
 
-def arch_step_rows(archs=ARCH_NAMES, device=None) -> list[str]:
+def _graph_us(fn, dev: torch.device, reps: int = ARCH_REPS) -> tuple[float, float]:
+    """fn() captured once as a CUDA graph: (mean microseconds a replay, the
+    capture's seconds).  fn runs once eagerly on the capture stream (the
+    warm-up, as the reference's first call compiles and runs), is captured
+    on that stream, and the graph is timed by ``_time_us`` (one replay, then
+    ``reps`` timed).  The graph and fn's outputs are released on return."""
+    graph = torch.cuda.CUDAGraph()
+    capture, stream = _graph_capture(graph)
+    stream.wait_stream(torch.cuda.current_stream(dev))
+    with torch.cuda.stream(stream):
+        fn()
+    torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    with capture:
+        out = fn()
+    torch.cuda.synchronize(dev)
+    capture_s = time.perf_counter() - t0
+    us = _time_us(graph.replay, dev, reps)
+    del out, graph
+    return us, capture_s
+
+
+def step_bodies(params, batch: dict, step_in: dict, caches: dict, cfg):
+    """(train, decode): the two computations the reference jits.  train()
+    returns ``loss_fn`` and its gradients over the trainable weights
+    (``torch.autograd.grad``), as ``jax.value_and_grad(loss_fn)``; decode()
+    returns the logits of ``decode_step`` at position 3 (``cache_len`` a 0-d
+    int32 on the caches' device), as the reference's ``decode_step(...)[0]``.
+    decode writes the new row and recurrent states into ``caches`` in
+    place."""
+    weights = [p for p in params.parameters() if p.requires_grad]
+    cache_len = torch.full((), 3, dtype=torch.int32,
+                           device=next(iter(caches.values())).device)
+
+    def train():
+        loss = loss_fn(params, batch, cfg)
+        return loss, torch.autograd.grad(loss, weights)
+
+    def decode():
+        with torch.no_grad():
+            return decode_step(params, step_in, caches, cache_len, cfg)[0]
+
+    return train, decode
+
+
+def arch_step_rows(archs=ARCH_NAMES, device=None, capture_s: dict | None = None) -> list[str]:
     """CSV rows ``lm,<arch>,train_step|decode_step,<us>,reduced B2xS64``:
-    the reduced config's train step (loss and its gradients) and one decode
-    step at position 3 of a 64-position cache."""
+    the reduced config's train step and one decode step at position 3 of a
+    64-position cache (``step_bodies``), each a CUDA graph's replay on a
+    card (``_graph_us``) and an eager call on the CPU.  ``capture_s``, if
+    given, receives each card row's capture seconds under (arch, op).  Each
+    config's graphs are released before the next config is built."""
     dev = resolve(device)
     B, S = ARCH_B, ARCH_S
     rows = [ARCH_HEADER]
@@ -81,22 +134,16 @@ def arch_step_rows(archs=ARCH_NAMES, device=None) -> list[str]:
             toks = torch.randint(0, cfg.vocab_size, (B, S), generator=g, device=dev)
             batch = {"tokens": toks, "labels": toks}
             step_in = {"tokens": torch.zeros((B,), dtype=torch.long, device=dev)}
-        weights = [p for p in params.parameters() if p.requires_grad]
-
-        def train():
-            loss = loss_fn(params, batch, cfg)
-            torch.autograd.grad(loss, weights)
-
-        us = _time_us(train, dev, ARCH_REPS)
-        rows.append(f"lm,{name},train_step,{us:.0f},reduced B{B}xS{S}")
-        caches = init_caches(cfg, B, S, dev)
-
-        def decode():
-            with torch.no_grad():
-                decode_step(params, step_in, caches, 3, cfg)
-
-        us = _time_us(decode, dev, ARCH_REPS)
-        rows.append(f"lm,{name},decode_step,{us:.0f},reduced B{B}")
+        train, decode = step_bodies(params, batch, step_in, init_caches(cfg, B, S, dev), cfg)
+        for op, fn, derived in (("train_step", train, f"reduced B{B}xS{S}"),
+                                ("decode_step", decode, f"reduced B{B}")):
+            if dev.type == "cuda":
+                us, secs = _graph_us(fn, dev)
+                if capture_s is not None:
+                    capture_s[(name, op)] = secs
+            else:
+                us = _time_us(fn, dev, ARCH_REPS)
+            rows.append(f"lm,{name},{op},{us:.0f},{derived}")
     return rows
 
 

@@ -1,4 +1,4 @@
-"""Layer-weight streaming + offloaded remat (host-tier oversubscription).
+"""Layer-weight streaming + remat policies (host-tier oversubscription).
 
 The counterpart of ``repro.core.streaming``.  ``fetch_params`` copies
 parameters that a ResidencyPlan places in HOST space to the card at their
@@ -9,6 +9,11 @@ the pinned tensors they were fetched from.
 
 Where the caller runs on the CPU there is no host tier: the copies are
 identities and the plan is carried analytically, as in the reference.
+
+``remat_policy`` and ``checkpoint_layer`` keep the reference's policies.
+Its "offload" offloads only the tensors named "residual", and no layer of
+either package names one, so "offload" recomputes as "full" does and
+keeps every saved tensor on the card.
 """
 from __future__ import annotations
 
@@ -101,7 +106,7 @@ def _save_nothing(ctx, op, *args, **kwargs):
     return CheckpointPolicy.PREFER_RECOMPUTE
 
 
-def remat_policy(kind: str, device=None):
+def remat_policy(kind: str):
     """Activation-residency policy, as a selective-checkpoint policy
     function (what the forward pass keeps for the backward pass).
 
@@ -109,9 +114,11 @@ def remat_policy(kind: str, device=None):
     - "dots": save the outputs of the matrix products (``mm``, ``addmm``,
       ``bmm``), recompute the rest
     - "full": save nothing; recompute (the standard big-model choice)
-    - "offload": on a device with a host tier, save everything but in
-      pinned host memory (``checkpoint_layer`` packs it there); elsewhere
-      "full", as the reference falls back on a backend without memory kinds
+    - "offload": the reference's ``save_and_offload_only_these_names(
+      names_which_can_be_saved=[], names_which_can_be_offloaded=
+      ["residual"])``: save nothing, offload to pinned host memory only the
+      tensors named "residual", recompute the rest.  No layer names a
+      tensor "residual", so this is "full"'s policy on every device
     """
     if kind not in REMAT_KINDS:
         raise ValueError(f"unknown remat policy {kind!r}")
@@ -119,37 +126,23 @@ def remat_policy(kind: str, device=None):
         return _save_all
     if kind == "dots":
         return _save_dots
-    if kind == "offload" and backend_supports_memory_kinds(
-            torch.device("cpu") if device is None else device):
-        return _save_all
     return _save_nothing
-
-
-def _device_of(args) -> torch.device:
-    found = []
-    _map_tensors(found.append, args)
-    return found[0].device if found else torch.device("cpu")
 
 
 def checkpoint_layer(fn, kind: str):
     """``fn`` under remat policy ``kind``: "none" is ``fn`` itself, "full"
-    is ``torch.utils.checkpoint`` (non-reentrant), "dots" selective
-    checkpointing with ``remat_policy("dots")``, and "offload" runs ``fn``
-    under ``torch.autograd.graph.save_on_cpu(pin_memory=True)`` when its
-    tensors are on a CUDA device ("full" on the CPU).  The checkpoints keep
-    no RNG state (``preserve_rng_state=False``): no layer draws random
-    numbers, and the compiled train step captures the recompute in a CUDA
-    graph."""
+    and "offload" (which saves and offloads nothing, ``remat_policy``) are
+    ``torch.utils.checkpoint`` (non-reentrant), the same operations and so
+    the same bits, and "dots" is selective checkpointing with
+    ``remat_policy("dots")``.  The checkpoints keep no RNG state
+    (``preserve_rng_state=False``): no layer draws random numbers, and the
+    compiled train step captures the recompute in a CUDA graph."""
     policy = remat_policy(kind)  # raises on an unknown name
     if kind == "none":
         return fn
 
     @functools.wraps(fn)
     def wrapped(*args):
-        dev = _device_of(args)
-        if kind == "offload" and remat_policy(kind, dev) is _save_all:
-            with torch.autograd.graph.save_on_cpu(pin_memory=True):
-                return fn(*args)
         if kind == "dots":
             return checkpoint(fn, *args, use_reentrant=False, preserve_rng_state=False,
                               context_fn=functools.partial(

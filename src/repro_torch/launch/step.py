@@ -210,11 +210,11 @@ def build_train_step(arch: ArchConfig, shape: ShapeConfig, mesh=None,
     step fetches it to the card and writes the update back into the same
     tensors, and waits for the card before it returns.
 
-    With no mesh the step is a ``GraphTrainStep``: on a card the whole step
-    in one CUDA graph, the counterpart of the reference's ``jax.jit`` with
-    donation.  Remat "offload" keeps the eager step (its
-    ``save_on_cpu(pin_memory=True)`` allocates pinned memory in every
-    forward), as does a ``mesh``: params and state placed by
+    With no mesh the step is a ``GraphTrainStep`` under every plan (remat
+    "offload" recomputes as "full" does, ``core/streaming.py``): on a card
+    the whole step in one CUDA graph, the counterpart of the reference's
+    ``jax.jit`` with donation.  A ``mesh`` keeps the eager step, as the
+    reference runs no compiled sharded step: params and state placed by
     ``place_train_state``, and ``batch`` the global batch (plain tensors,
     the same on every rank), which each microbatch takes by ``batch_specs``.
 
@@ -281,7 +281,7 @@ def build_train_step(arch: ArchConfig, shape: ShapeConfig, mesh=None,
         return params, opt_state, {"loss": _scalar(loss), "grad_norm": _scalar(gnorm),
                                    "lr": lr}
 
-    if mesh is None and remat != "offload":
+    if mesh is None:
         return GraphTrainStep(train_step, dev, opt_on_host)
 
     def eager_train_step(params, opt_state, batch, step):

@@ -30,6 +30,7 @@ from repro_torch import configs as tconfigs  # noqa: E402
 from repro_torch.checkpoint.checkpointer import tree_leaves  # noqa: E402
 from repro_torch.configs import ARCH_NAMES  # noqa: E402
 from repro_torch.core import streaming  # noqa: E402
+from repro_torch.core import residency as tres  # noqa: E402
 from repro_torch.core.advise import MemorySpace  # noqa: E402
 from repro_torch.data import DataConfig, synthetic_batches  # noqa: E402
 from repro_torch.launch import step as tstep  # noqa: E402
@@ -46,12 +47,17 @@ class _NoHostData(NoHostRead):
 
 
 def _step_case(case: str, name: str = "starcoder2-3b"):
-    """(arch, plan) of the port for a case of ``STEP_CASES``, reduced, with
-    a warmup of 2 so that the lr moves from step to step."""
+    """(arch, plan) of the port for a case of ``STEP_CASES`` or
+    "host_int8_offload" (the planner's last escalation: int8 moments on the
+    host and remat "offload"), reduced, with a warmup of 2 so that the lr
+    moves from step to step."""
     _, arch = archs(name, warmup_steps=2, learning_rate=3e-3,
                     microbatches=2 if case == "micro2" else 1)
-    plan = (plans(*archs(name), opt_space=MemorySpace.HOST, int8_moments=True)[1]
-            if case == "host_int8" else None)
+    plan = None
+    if case.startswith("host_int8"):
+        remat = "offload" if case == "host_int8_offload" else arch.train.remat
+        plan = plans(*archs(name), opt_space=MemorySpace.HOST, int8_moments=True,
+                     remat=remat)[1]
     return arch, plan
 
 
@@ -104,13 +110,14 @@ def test_tensor_step_is_the_int_step_bit_for_bit(case):
 
 
 @pytest.mark.parametrize("name,case", [(n, "fp32") for n in ARCH_NAMES]
-                         + [("starcoder2-3b", "micro2"), ("starcoder2-3b", "host_int8")])
+                         + [("starcoder2-3b", "micro2"), ("starcoder2-3b", "host_int8"),
+                            ("starcoder2-3b", "host_int8_offload")])
 def test_the_step_reads_nothing_on_the_host(name, case):
     """Every reduced config (mixtral-8x22b, qwen2-72b and grok-1-314b with
-    their 8 microbatches, here min(8, B) = 2), 2 microbatches, and int8
-    moments on the host plan: the whole step, with a tensor step, makes no
-    host read, no data-dependent shape and no tensor from host data, any of
-    which a capture refuses or freezes."""
+    their 8 microbatches, here min(8, B) = 2), 2 microbatches, int8 moments
+    on the host plan, and that plan under remat "offload": the whole step,
+    with a tensor step, makes no host read, no data-dependent shape and no
+    tensor from host data, any of which a capture refuses or freezes."""
     arch, plan = _step_case(case, name)
     model, state, step = _fresh(arch, plan)
     (batch,) = _batches(arch.model, 1)
@@ -168,25 +175,47 @@ class _Mesh:
 
 
 def test_build_train_step_routes():
-    """A graph step with no mesh (its body the eager step), the eager step
-    on a mesh and with remat "offload"; on the CPU the offload route gives
-    the graph route's bits ("offload" is "full" there)."""
+    """A graph step with no mesh under every remat (its body the eager
+    step), the eager step on a mesh; the "offload" plan's graph step gives
+    the "full" plan's bits ("offload" recomputes as "full" does)."""
     arch, _ = _step_case("fp32")
     shape = tconfigs.ShapeConfig("t", S, B, "train")
     step = tstep.build_train_step(arch, shape, device="cpu")
     assert isinstance(step, tstep.GraphTrainStep) and callable(step.body)
     assert step.graph is None and step.capture_ms == 0.0
     assert not isinstance(tstep.build_train_step(arch, shape, _Mesh()), tstep.GraphTrainStep)
-    offload = plans(*archs("starcoder2-3b"), remat="offload")[1]
-    eager = tstep.build_train_step(arch, shape, None, offload, total_steps=10, device="cpu")
-    assert not isinstance(eager, tstep.GraphTrainStep)
     batches = _batches(arch.model)
     runs = []
-    for route in ("graph", "eager"):
-        model, state, graph = _fresh(arch, None)
-        fn = graph if route == "graph" else eager
+    for remat in ("full", "offload"):
+        plan = plans(*archs("starcoder2-3b"), remat=remat)[1]
+        model, state, _ = _fresh(arch, plan)
+        step = tstep.build_train_step(arch, shape, None, plan, total_steps=10, device="cpu")
+        assert isinstance(step, tstep.GraphTrainStep)
         for i, b in enumerate(batches, start=1):
-            fn(model, state, b, i)
+            step(model, state, b, i)
+        runs.append(_leaves(model, state))
+    assert all(torch.equal(x, y) for x, y in zip(*runs))
+
+
+def test_the_planners_last_escalation_trains_through_the_graph_step():
+    """A budget that nothing fits takes the planner to its last step (int8
+    moments, the state on the host, remat "offload"); ``build_train_step``
+    gives that plan a ``GraphTrainStep``, whose steps equal, bit for bit,
+    those of the same plan under remat "full"."""
+    arch, _ = _step_case("fp32")
+    shape = tconfigs.ShapeConfig("t", S, B, "train")
+    plan = tres.ResidencyPlanner(1e3).plan(arch, shape, tconfigs.MeshConfig(False))
+    assert (plan.int8_moments, plan.opt_space, plan.remat) == (True, MemorySpace.HOST,
+                                                              "offload")
+    assert not plan.fits
+    batches = _batches(arch.model)
+    runs = []
+    for p in (plan, dataclasses.replace(plan, remat="full")):
+        model, state, _ = _fresh(arch, p)
+        step = tstep.build_train_step(arch, shape, None, p, total_steps=10, device="cpu")
+        assert isinstance(step, tstep.GraphTrainStep) and step.opt_on_host
+        for i, b in enumerate(batches, start=1):
+            step(model, state, b, i)
         runs.append(_leaves(model, state))
     assert all(torch.equal(x, y) for x, y in zip(*runs))
 
