@@ -1871,7 +1871,8 @@ class Smoke:
         rec = {}
         with GraphHeld(self, tf) as held, PrefillHeld(self, tf) as held_prefill:
             toks = serve(SERVE_MODEL, reduced=False, batch=SERVE_B, prompt_len=SERVE_PROMPT,
-                         gen=SERVE_GEN, device=DEVICE, prompts=prompts, record=rec)
+                         gen=SERVE_GEN, device=DEVICE, prompts=prompts, record=rec,
+                         keep_logits=True)
             torch.cuda.synchronize()
             peak = torch.cuda.max_memory_allocated()
             counts = {name: fn.launches for name, fn in self.counters.items()}
@@ -2182,7 +2183,7 @@ class Smoke:
             with GraphHeld(self, tf) as held, PrefillHeld(self, tf) as held_prefill:
                 toks = serve(name, reduced=False, batch=SERVE_B, prompt_len=SERVE_PROMPT,
                              gen=SERVE_GEN, device=DEVICE, params=params, prompts=[prompt],
-                             record=rec)
+                             record=rec, keep_logits=True)
                 torch.cuda.synchronize()
                 peak = torch.cuda.max_memory_allocated()
                 counts = {n: fn.launches for n, fn in self.counters.items()}

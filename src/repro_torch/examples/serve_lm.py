@@ -10,7 +10,7 @@ from __future__ import annotations
 
 import argparse
 
-from repro_torch.launch.serve import serve
+from repro_torch.launch import serve
 
 ARCHS = ("qwen2-7b", "mixtral-8x22b", "rwkv6-3b", "musicgen-medium")
 
@@ -20,8 +20,10 @@ def main(argv=None) -> None:
     ap.add_argument("--device", default=None,
                     help="torch device (default: the CUDA card)")
     args = ap.parse_args(argv)
+    device = [] if args.device is None else ["--device", args.device]
     for arch in ARCHS:
-        serve(arch, batch=2, prompt_len=32, gen=12, device=args.device)
+        serve.main(["--arch", arch, "--batch", "2", "--prompt-len", "32", "--gen", "12",
+                    *device])
 
 
 if __name__ == "__main__":

@@ -33,11 +33,11 @@ counterpart of the reference's ``jax.jit`` with donation.
 from __future__ import annotations
 
 import contextlib
-import time
 
 import torch
 from torch.distributed.tensor import DTensor, distribute_tensor
 
+from repro_torch import spans
 from repro_torch.checkpoint.checkpointer import tree_leaves
 from repro_torch.configs.base import ArchConfig, ShapeConfig
 from repro_torch.core.advise import MemorySpace
@@ -222,6 +222,10 @@ def build_train_step(arch: ArchConfig, shape: ShapeConfig, mesh=None,
     reference's; with ``microbatches`` > 1 summed over the microbatches in
     fp32 buffers and divided by their number.  Metrics: ``loss``,
     ``grad_norm`` (before clipping) and ``lr``, as plain 0-d tensors.
+
+    The step's phases are spans (``repro_torch.spans``), timed on the card:
+    ``train.grads``, ``train.clip``, ``train.update``, and with the state on
+    the host ``train.fetch`` before the update and ``train.offload`` after.
     """
     cfg = arch.model
     dev = resolve(device if mesh is None else mesh.device_type)
@@ -252,32 +256,38 @@ def build_train_step(arch: ArchConfig, shape: ShapeConfig, mesh=None,
                            warmup_steps=arch.train.warmup_steps,
                            total_steps=total_steps)
         names, leaves = zip(*params.named_parameters())
-        if micro == 1:
-            loss, grads = grads_of(params, names, leaves, place(batch))
-        else:
-            acc = None
-            loss = 0.0
-            for i in range(micro):
-                mb = {k: v.reshape((micro, v.shape[0] // micro) + v.shape[1:])[i]
-                      for k, v in batch.items()}
-                l, g = grads_of(params, names, leaves, place(mb))
-                if acc is None:  # fp32 buffers: 0 + g, exactly g
-                    acc = [x.to(torch.float32) for x in g]
-                else:
-                    for a, x in zip(acc, g):
-                        a += x
-                loss = loss + l
-                del g
-            grads = [a / micro for a in acc]
-            del acc
-            loss = loss / micro
-        grads, gnorm = clip_by_global_norm(dict(zip(names, grads)), arch.train.grad_clip)
+        with spans.span("train.grads", dev):
+            if micro == 1:
+                loss, grads = grads_of(params, names, leaves, place(batch))
+            else:
+                acc = None
+                loss = 0.0
+                for i in range(micro):
+                    mb = {k: v.reshape((micro, v.shape[0] // micro) + v.shape[1:])[i]
+                          for k, v in batch.items()}
+                    l, g = grads_of(params, names, leaves, place(mb))
+                    if acc is None:  # fp32 buffers: 0 + g, exactly g
+                        acc = [x.to(torch.float32) for x in g]
+                    else:
+                        for a, x in zip(acc, g):
+                            a += x
+                    loss = loss + l
+                    del g
+                grads = [a / micro for a in acc]
+                del acc
+                loss = loss / micro
+        with spans.span("train.clip", dev):
+            grads, gnorm = clip_by_global_norm(dict(zip(names, grads)), arch.train.grad_clip)
         if opt_on_host:
-            on_card = fetch_params(opt_state, dev)          # host -> card
-            apply_updates(params, grads, on_card, acfg, lr)
-            offload_into(opt_state, on_card)                # card -> the same host tensors
+            with spans.span("train.fetch", dev):
+                on_card = fetch_params(opt_state, dev)      # host -> card
+            with spans.span("train.update", dev):
+                apply_updates(params, grads, on_card, acfg, lr)
+            with spans.span("train.offload", dev):
+                offload_into(opt_state, on_card)            # card -> the same host tensors
         else:
-            apply_updates(params, grads, opt_state, acfg, lr)
+            with spans.span("train.update", dev):
+                apply_updates(params, grads, opt_state, acfg, lr)
         return params, opt_state, {"loss": _scalar(loss), "grad_norm": _scalar(gnorm),
                                    "lr": lr}
 
@@ -336,6 +346,12 @@ class GraphTrainStep:
     the CPU).  The metrics (``loss``, ``grad_norm``, ``lr``) are 0-d outputs
     of the graph, which the next replay rewrites.
 
+    Spans: ``train.step`` (fill, capture or replay, wait) and
+    ``graph.capture`` (``kind="train"``, ``capture_ms``).  The body's phase
+    spans are captured only when a recording is open at the capture, as
+    timing-event nodes of the graph, whose times each replay then enters as
+    spans (``spans.replayed``); with none open the graph has no such node.
+
     From its first call the step is bound to the params and state objects
     and the tensors they hold, and to the batch's keys, shapes and dtypes:
     a call with others raises.  It never re-captures and never falls back
@@ -348,6 +364,7 @@ class GraphTrainStep:
         self.graph = self.metrics = None
         self.capture_ms = 0.0
         self._bound = None
+        self._phases = []
 
     @staticmethod
     def _pointers(params, opt_state) -> tuple:
@@ -393,11 +410,12 @@ class GraphTrainStep:
         torch.cuda.synchronize(dev)
         # the warm-up's transients, else the graph's pool holds a second copy
         torch.cuda.empty_cache()
-        t0 = time.perf_counter()
-        with capture:
-            self.metrics = self.body(params, opt_state, self._batch, self._step)[2]
-        torch.cuda.synchronize(dev)
-        self.capture_ms = (time.perf_counter() - t0) * 1e3
+        with spans.span("graph.capture", kind="train") as timed, \
+                spans.graph_phases() as self._phases:
+            with capture:
+                self.metrics = self.body(params, opt_state, self._batch, self._step)[2]
+            torch.cuda.synchronize(dev)
+        self.capture_ms = timed.ms
         self.graph = graph
         for k, v in first.items():
             self.metrics[k].copy_(v)
@@ -405,15 +423,17 @@ class GraphTrainStep:
 
     def __call__(self, params, opt_state, batch, step):
         self._bind(params, opt_state, batch)
-        self._fill(batch, step)
-        if self.device.type != "cuda":
-            metrics = self.body(params, opt_state, self._batch, self._step)[2]
-        elif self.graph is None:
-            metrics = self._capture(params, opt_state)
-        else:
-            self.graph.replay()
-            metrics = self.metrics
-        _await_host(self.device, self.opt_on_host)
+        with spans.span("train.step"):
+            self._fill(batch, step)
+            if self.device.type != "cuda":
+                metrics = self.body(params, opt_state, self._batch, self._step)[2]
+            elif self.graph is None:
+                metrics = self._capture(params, opt_state)
+            else:
+                self.graph.replay()
+                spans.replayed(self._phases)
+                metrics = self.metrics
+            _await_host(self.device, self.opt_on_host)
         return params, opt_state, dict(metrics)
 
 
@@ -456,7 +476,10 @@ class GraphPrefillStep:
     does; ``logits`` holds the last position's logits and ``capture_ms``
     the capture's host time (the device synchronised before and after,
     ``torch.cuda.graph``'s own garbage collection and cache release
-    included; 0.0 on the CPU).  The step runs on the params' device;
+    included; 0.0 on the CPU), the span ``graph.capture``
+    (``kind="prefill"``).  Spans: ``prefill.layers`` (the weight loads,
+    layers and cache copies, the capture inside the first call's; timed on
+    the card too) and ``prefill.logits``.  The step runs on the params' device;
     params on the CPU take the same slot path, the body called eagerly in
     place of a replay.
     """
@@ -506,12 +529,12 @@ class GraphPrefillStep:
         with torch.cuda.stream(side):
             first = tf.prefill_layer(self.slot, self._x, self._positions, cfg)
         torch.cuda.synchronize(dev)
-        t0 = time.perf_counter()
-        with capture:
-            out, self._cache = tf.prefill_layer(self.slot, self._x, self._positions, cfg)
-            self._x.copy_(out)
-        torch.cuda.synchronize(dev)
-        self.capture_ms = (time.perf_counter() - t0) * 1e3
+        with spans.span("graph.capture", kind="prefill") as timed:
+            with capture:
+                out, self._cache = tf.prefill_layer(self.slot, self._x, self._positions, cfg)
+                self._x.copy_(out)
+            torch.cuda.synchronize(dev)
+        self.capture_ms = timed.ms
         self.graph = graph
         self._x.copy_(first[0])
         return self._x, first[1]
@@ -533,13 +556,15 @@ class GraphPrefillStep:
         layers = self._layers(params, batch)
         x, positions = tf.embed_inputs(params, batch, self.cfg)
         caches = None
-        for i, weights in enumerate(layers):
-            self._load(weights)
-            x, cache = self._layer(i, x, positions)
-            if caches is None:
-                caches = {k: v.new_empty((len(layers),) + v.shape) for k, v in cache.items()}
-            _copy_by_dtype([caches[k][i] for k in cache], cache.values())
-        self.logits = tf.prefill_logits(params, x, self.cfg)
+        with spans.span("prefill.layers", x.device):
+            for i, weights in enumerate(layers):
+                self._load(weights)
+                x, cache = self._layer(i, x, positions)
+                if caches is None:
+                    caches = {k: v.new_empty((len(layers),) + v.shape) for k, v in cache.items()}
+                _copy_by_dtype([caches[k][i] for k in cache], cache.values())
+        with spans.span("prefill.logits"):
+            self.logits = tf.prefill_logits(params, x, self.cfg)
         return self.logits.argmax(dim=-1), caches
 
 
@@ -581,6 +606,8 @@ class GraphServeStep:
 
     Caches on the CPU take the eager step, which sets ``logits`` too.
     ``device``: None follows the caches; a device makes any other raise.
+    The capture is the span ``graph.capture`` (``kind="decode"``), its
+    warm-up the child span ``graph.warmup``.
     """
 
     def __init__(self, cfg, device=None):
@@ -614,18 +641,20 @@ class GraphServeStep:
         self._batch = {k: torch.empty_like(v) for k, v in batch.items()}
         self._cache_len = torch.empty((), dtype=torch.int32, device=dev)
         self._fill(batch, cache_len)
-        graph = torch.cuda.CUDAGraph()
-        capture, side = _graph_capture(graph)
-        side.wait_stream(torch.cuda.current_stream(dev))
-        with torch.cuda.stream(side):
-            scratch = {k: v.clone() for k, v in caches.items()}
-            for _ in range(GRAPH_WARMUP):
-                tf.decode_step(params, self._batch, scratch, self._cache_len, self.cfg)
-            del scratch
-        torch.cuda.current_stream(dev).wait_stream(side)
-        with capture:
-            logits, _ = tf.decode_step(params, self._batch, caches, self._cache_len, self.cfg)
-            nxt = logits.argmax(dim=-1)
+        with spans.span("graph.capture", kind="decode"):
+            graph = torch.cuda.CUDAGraph()
+            capture, side = _graph_capture(graph)
+            side.wait_stream(torch.cuda.current_stream(dev))
+            with torch.cuda.stream(side), spans.span("graph.warmup"):
+                scratch = {k: v.clone() for k, v in caches.items()}
+                for _ in range(GRAPH_WARMUP):
+                    tf.decode_step(params, self._batch, scratch, self._cache_len, self.cfg)
+                del scratch
+            torch.cuda.current_stream(dev).wait_stream(side)
+            with capture:
+                logits, _ = tf.decode_step(params, self._batch, caches, self._cache_len,
+                                           self.cfg)
+                nxt = logits.argmax(dim=-1)
         self.graph, self.logits, self._next = graph, logits, nxt
 
     def __call__(self, params, batch, caches, cache_len):

@@ -274,7 +274,7 @@ def test_serve_prefills_through_build_prefill_step(monkeypatch):
     monkeypatch.setattr(tserve, "build_prefill_step", recording)
     record = {}
     got = tserve.serve("qwen2-7b", batch=B, prompt_len=8, gen=4, device="cpu",
-                       record=record)
+                       record=record, keep_logits=True)
     np.testing.assert_array_equal(got, want)
     L = get_config("qwen2-7b").model.reduce().num_layers
     assert calls == [("build", "qwen2-7b", L, None),

@@ -203,7 +203,7 @@ def test_serve_keeps_each_steps_logits_apart(monkeypatch):
     monkeypatch.setattr(tserve, "build_serve_step", lambda *a, **k: OneBuffer())
     record = {}
     toks = tserve.serve("qwen2-7b", batch=B, prompt_len=8, gen=4, device="cpu",
-                        record=record)
+                        record=record, keep_logits=True)
     kept = record["logits"][1:]
     assert len(kept) == 3 and all(x is not OneBuffer.logits for x in kept)
     for i, x in enumerate(kept):

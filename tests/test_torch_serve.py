@@ -74,7 +74,7 @@ def test_serve_matches_jax(name):
     model = params_from_jax(tree, cfg, "cpu")
     record = {}
     toks = serve(name, batch=B, prompt_len=PROMPT, gen=GEN, seed=0, device="cpu",
-                 params=model, teacher=jtoks, record=record)
+                 params=model, teacher=jtoks, record=record, keep_logits=True)
     assert toks.shape == jtoks.shape and toks.dtype == np.int32
     want = _reference_logits(arch, tree, jtoks)
     assert len(record["logits"]) == GEN
@@ -118,7 +118,7 @@ def test_serve_takes_prompts_from_the_pipeline():
     pre = prefetched(cfg, ShapeConfig("serve", PROMPT, B, "prefill"), device="cpu")
     record = {}
     toks = serve("qwen2-vl-2b", batch=B, prompt_len=PROMPT, gen=3, device="cpu",
-                 prompts=pre, record=record)
+                 prompts=pre, record=record, keep_logits=True)
     assert toks.shape == (B, 3)
     assert all(bool(torch.isfinite(x).all()) for x in record["logits"])
     with pytest.raises(ValueError, match="want"):
