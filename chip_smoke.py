@@ -62,7 +62,19 @@
    launch one graph a layer (its host launch calls and busy share).  Then
    one prefill, 4 eager decode steps and 4 graph replays of the same shapes
    under ``torch.profiler``, for the device's busy share and the host's
-   launch calls a token.  Then holds that model
+   launch calls a token.  The decode attention of a bf16 model on the card
+   reads the cache in place through the paged kernel: at the benchmark's
+   two serve shapes (B 16 × 1,024 + 256, a cache of 1,280 positions, and
+   B 8 × 2,048 + 8, one of 2,056; full depth) the first and last layers'
+   route on the post-prefill cache is held against the fp64 plain
+   attention at the paged kernel's full-width limit (which a dropped newest
+   token and another sequence's pages fail), and the serve step captured
+   on that route against one captured on the plain route (repeat_kv +
+   einsum) on copies of the same caches fed the same tokens (logits at the
+   bf16 limit below, next tokens alike, the counters and kernel launches of
+   each), and bit for bit against its own eager steps, with ms a token
+   both ways and the paged kernels' device time a layer beside the live
+   K/V's bytes.  Then holds that model
    on the card: bf16 against the same weights in
    fp32 (relative L2 of the last logits, a limit shown to reject a zeroed
    ``wo`` and RoPE positions off by one), and fp32 prefill + decode
@@ -161,7 +173,7 @@
 10. Runs CG, Graph500 and the FFT convolutions at their default sizes, and
     the kernel timing rows of ``repro_torch.bench.lm_bench``.
 
-Prints ``{"serve_path": ...}``, ``{"family_serve": ...}``,
+Prints ``{"serve_path": ...}``, ``{"decode_route": ...}``, ``{"family_serve": ...}``,
 ``{"model_checks": ...}``, ``{"movement_path": ...}``, ``{"um_path": ...}``,
 ``{"sweep_path": ...}``, ``{"train_path": ...}``, ``{"mesh_path": ...}`` and
 ``{"kernels": [...]}`` lines, then as its last line
@@ -305,6 +317,25 @@ MODEL_ATOL = MODEL_RTOL = 2e-2
 # (tests/test_torch_models.py holds all three on a narrow qwen2-7b).
 BF16_LOGIT_REL = 0.05
 WO_FAULT_LAYER, ROPE_FAULT_LAYER = 14, 0
+# The decode step's route to the paged kernel (decode_route): qwen2-7b at
+# full depth, through build_serve_step, at the benchmark's two serve shapes
+# (label, B, prompt, generated): the decode cell's cache of 1,280 positions
+# (pages of 64) and the prefill cell's of 2,056 (pages of 1,028).  Each
+# layer's attention reads its cache in place through the kernel:
+# ROUTE_LAUNCHES kernels a layer a step (items, merge).  One layer's route,
+# on the post-prefill cache with the slots past the prompt filled, is held
+# at cache_len mid, S - 1 and S against the fp64 plain attention at
+# FULL_ATOL/FULL_RTOL, a limit that the newest token dropped and a table
+# reading another sequence's pages must fail.  The whole step's logits are
+# held against the plain route's (repeat_kv + einsum, the predicate made
+# false for the capture) on the same caches and tokens at BF16_LOGIT_REL,
+# with at least ROUTE_TOKENS_ALIKE of their next tokens the same (0.948 at
+# the decode cell's shape: the models' random weights leave near ties that
+# the plain route's bf16 scores and P flip), and its graph bit for bit
+# against its eager steps.
+ROUTE_CASES = (("decode", 16, 1024, 256), ("prefill", 8, 2048, 8))
+ROUTE_LAUNCHES, ROUTE_TOKENS_ALIKE = 2, 0.9
+PAGED_KERNEL = re.compile(r"paged_(tc|merge)_kernel")
 # The movement layer: copy rates of a 256 MiB buffer (median of 5); the
 # prefetch iterator over qwen2-vl-2b's vlm batch (B 8, S 4,096, d 1,536),
 # PREFETCH_DISTINCT distinct batches of synthetic_batches cycled over
@@ -551,6 +582,18 @@ def step_not_filled(step):
         yield "the step buffer left unfilled"
     finally:
         del step._fill
+
+
+@contextlib.contextmanager
+def plain_route(tf):
+    """The decode step's plain attention on a card (repeat_kv + einsum, as
+    before the paged route): the route's predicate made false."""
+    real = tf.paged_decode_ok
+    tf.paged_decode_ok = lambda cache, heads: False
+    try:
+        yield
+    finally:
+        tf.paged_decode_ok = real
 
 
 def rel_l2(pairs) -> float:
@@ -1908,9 +1951,207 @@ class Smoke:
               f"decode {rec['decode_ms_per_token']:.2f} ms/token as a CUDA graph, "
               f"{graph['eager_ms_per_token']:.2f} eager (bound {decode_bound:.2f} ms), capture "
               f"{rec['capture_ms']:.1f} ms, {rec['tokens_per_s']:.1f} tokens/s, peak {peak} "
-              f"bytes; the model calls the plain attention, kernel launches {counts}")
+              f"bytes; the decode attention runs in the paged kernel, kernel launches {counts}")
         out["profile"] = self.serve_profile(tf, init_params, init_caches)
         print(json.dumps({"serve_path": out}))
+
+    def decode_route(self, tf, init_params):
+        """qwen2-7b's decode through the paged kernel at full depth, at each
+        of ROUTE_CASES' shapes (``decode_route_case``)."""
+        from repro_torch.configs import get_config
+
+        arch = get_config(SERVE_MODEL)
+        out = {label: self.decode_route_case(tf, init_params, arch, B, P, G)
+               for label, B, P, G in ROUTE_CASES}
+        print(json.dumps({"decode_route": out}))
+
+    def decode_route_case(self, tf, init_params, arch, B, P, G) -> dict:
+        """qwen2-7b's decode through the paged kernel at full depth, B
+        sequences of a P-token prompt and G tokens (a cache of S = P + G).
+        First each of layers 0 and L - 1 alone (``route_layer_check``).
+        Then the serve step of ``launch.step.build_serve_step`` captured with
+        the route (each layer's attention in the paged kernel) and with the
+        plain route (``plain_route``), each on its own copy of the same
+        post-prefill caches and fed the same tokens.  Checks: the capture
+        counts ``attn.decode_kernel`` once a layer (the plain one
+        ``attn.decode_plain``) and launches ROUTE_LAUNCHES paged kernels a
+        layer for each step it runs (warm-up and capture; an eager step the
+        same, a replay none); the route's logits within BF16_LOGIT_REL of
+        the plain route's, per step and row, and at least
+        ROUTE_TOKENS_ALIKE of their next tokens alike; its replays bit for
+        bit its eager ``decode_step``s.  Times: ms a token both ways (a
+        replay and the host's read of the tokens), and the paged kernels'
+        device time a layer in a profiled replay beside the bytes of the
+        live K/V."""
+        torch = self.torch
+        from torch.autograd import DeviceType
+        from torch.profiler import ProfilerActivity, profile
+
+        from repro_torch import spans
+        from repro_torch.launch.serve import rehome_caches
+        from repro_torch.launch.step import GRAPH_WARMUP, build_serve_step
+
+        cfg = arch.model
+        L, S, V = cfg.num_layers, P + G, cfg.vocab_size
+        label = f"decode route B={B} S={S}"
+        paged = self.counters["paged_attention"]
+        self.start_app(f"decode route {SERVE_MODEL} full depth B={B} prompt={P} gen={G} "
+                       f"{cfg.dtype}, pages of {tf.page_size(S)}")
+        g = torch.Generator(device=DEVICE).manual_seed(30)
+        params = init_params(cfg, g, DEVICE)
+        prompt = torch.randint(0, cfg.vocab_size, (B, P), generator=g, device=DEVICE)
+        logits, caches = tf.prefill(params, {"tokens": prompt}, cfg)
+        first = logits.argmax(dim=-1).to(torch.int32)
+        pristine = rehome_caches(cfg, caches, B, S, DEVICE)
+        del logits, caches, prompt
+        layer_check = self.route_layer_check(tf, cfg, pristine, (0, L - 1), P, g, label)
+        lens = [torch.tensor(P + i, dtype=torch.int32, device=DEVICE) for i in range(G - 1)]
+
+        def served(kernel: bool, fed=None) -> dict:
+            """G - 1 replays of a serve step captured on this route, greedy
+            from the prefill's tokens, or fed ``fed``."""
+            own = {k: v.clone() for k, v in pristine.items()}
+            step = build_serve_step(arch, device=DEVICE)
+            paged.launches = 0
+            with contextlib.nullcontext() if kernel else plain_route(tf):
+                with spans.recording() as rec:
+                    step.capture(params, {"tokens": first}, own, lens[0])
+            counts = {s.name: s.counts for s in rec.spans if s.counts}
+            launches = paged.launches
+            inputs, out, nxt = [], [], first
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for i, n in enumerate(lens):
+                inputs.append(nxt if fed is None else fed[i])
+                nxt, _ = step(params, {"tokens": inputs[-1]}, own, n)
+                out.append(step.logits.clone())
+                nxt = nxt.to(torch.int32)
+                nxt.cpu()
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3 / len(lens)
+            return {"step": step, "caches": own, "logits": out, "inputs": inputs,
+                    "ms": ms, "counts": counts, "launches": launches}
+
+        route = served(True)
+        plain = served(False, route["inputs"])
+        per_step = L * ROUTE_LAUNCHES
+        self.expect(f"{label}: the capture counts attn.decode_kernel {L} times (once a "
+                    f"layer) and the warm-up {GRAPH_WARMUP * L}: {route['counts']}",
+                    route["counts"] == {"graph.warmup": {"attn.decode_kernel": GRAPH_WARMUP * L},
+                                        "graph.capture": {"attn.decode_kernel": L}})
+        self.expect(f"{label}: the warm-up and capture launch {route['launches']} paged "
+                    f"kernels, {per_step} a step",
+                    route["launches"] == per_step * (GRAPH_WARMUP + 1))
+        self.expect(f"{label}: the plain route counts attn.decode_plain and launches no "
+                    f"paged kernel: {plain['counts']}, {plain['launches']}",
+                    plain["counts"] == {"graph.warmup": {"attn.decode_plain": GRAPH_WARMUP * L},
+                                        "graph.capture": {"attn.decode_plain": L}}
+                    and plain["launches"] == 0)
+        rel = max(((a[:, :V].float() - b[:, :V].float()).norm(dim=-1)
+                   / b[:, :V].float().norm(dim=-1)).max().item()
+                  for a, b in zip(route["logits"], plain["logits"]))
+        agree = sum(int((a[:, :V].argmax(dim=-1) == b[:, :V].argmax(dim=-1)).sum())
+                    for a, b in zip(route["logits"], plain["logits"])) / (B * len(lens))
+        self.expect(f"{label}: logits within {BF16_LOGIT_REL} of the plain route's "
+                    f"(worst rel L2 {rel:.4e})", rel <= BF16_LOGIT_REL)
+        self.expect(f"{label}: next tokens alike the plain route's {agree:.4f} "
+                    f"(at least {ROUTE_TOKENS_ALIKE})", agree >= ROUTE_TOKENS_ALIKE)
+        plain_ms = plain["ms"]
+        del plain
+        self.free()
+        eager = {k: v.clone() for k, v in pristine.items()}
+        differ = 0
+        for i, n in enumerate(lens):
+            paged.launches = 0
+            logits, _ = tf.decode_step(params, {"tokens": route["inputs"][i]}, eager, n, cfg)
+            if i == 0:
+                eager_launches = paged.launches
+            differ += int(not torch.equal(logits, route["logits"][i]))
+        self.expect(f"{label}: an eager step launches {eager_launches} paged kernels "
+                    f"({per_step})", eager_launches == per_step)
+        self.expect(f"{label}: replays == eager decode_step bit for bit ({differ} of "
+                    f"{len(lens)} steps differ)", differ == 0)
+        del eager
+        # the paged kernels' device time in one replay at the last step's length
+        step, own = route["step"], route["caches"]
+        live = P + G - 1
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            step(params, {"tokens": route["inputs"][-1]}, own, lens[-1])
+            torch.cuda.synchronize()
+        kernel_us = {}
+        for e in prof.events():
+            found = PAGED_KERNEL.search(e.name)
+            if e.device_type == DeviceType.CUDA and found:
+                kernel_us[found[0]] = kernel_us.get(found[0], 0.0) + e.time_range.elapsed_us()
+        layer_us = sum(kernel_us.values()) / L
+        kv_bytes = 2 * B * live * cfg.num_kv_heads * cfg.head_dim * 2
+        bound_us = kv_bytes / PEAK_BYTES_PER_S * 1e6
+        out = {"model": SERVE_MODEL, "batch": B, "prompt_len": P, "gen": G,
+               "page_size": tf.page_size(S), "layer_check": layer_check,
+               "graph_ms_per_token": route["ms"], "plain_graph_ms_per_token": plain_ms,
+               "counts": route["counts"],
+               "capture_launches": route["launches"], "eager_launches": eager_launches,
+               "max_rel_l2_vs_plain": rel, "tokens_alike_vs_plain": agree,
+               "steps_differing_eager": differ, "kernel_us_by_name": kernel_us,
+               "kernel_us_per_layer": layer_us, "kv_bytes_per_layer": kv_bytes,
+               "bound_us_per_layer": bound_us,
+               "kernel_share": bound_us / layer_us if layer_us else None,
+               "card": self.card, "power_limit": self.power_limit}
+        print(f"{label}: {route['ms']:.2f} ms a token through the paged kernel, "
+              f"{plain_ms:.2f} through the plain attention; the paged kernels "
+              f"{layer_us:.1f} us a layer at {live} positions (bound {bound_us:.1f} us, "
+              f"{kv_bytes} bytes) [{self.card}]")
+        del route, step, own, pristine, params
+        self.free()
+        return out
+
+    def route_layer_check(self, tf, cfg, caches, layers, P, g, label) -> dict:
+        """Each of ``layers``' post-prefill caches, the slots past the P
+        prompt positions filled with random rows at the prompt's scale (what
+        decode steps write there), read through the route's view
+        (``transformer.paged_view`` / ``kv_pool``) by the paged kernel for a
+        random query, against ``attention.decode_attention`` in fp64 at
+        cache_len mid, S - 1 and S, at FULL_ATOL/FULL_RTOL; at mid the
+        limit must reject the newest token dropped (seq_lens one short) and
+        a block table that reads the next sequence's pages."""
+        torch = self.torch
+        from repro_torch.kernels.paged_attention import ops as paged_ops
+        from repro_torch.models import attention
+
+        B, S = caches["k"].shape[1:3]
+        worst = {}
+        for i in layers:
+            k, v = caches["k"][i].clone(), caches["v"][i].clone()
+            for c in (k, v):
+                scale = c[:, :P].float().std()
+                c[:, P:] = (torch.randn(c[:, P:].shape, generator=g, device=DEVICE)
+                            * scale).to(c.dtype)
+            q = torch.randn(B, cfg.num_heads, cfg.head_dim, generator=g,
+                            device=DEVICE).to(k.dtype)
+            for cache_len in (S // 2 + 3, S - 1, S):
+                n = torch.tensor(cache_len, dtype=torch.int32, device=DEVICE)
+                psz, table, lens = tf.paged_view(B, S, n, DEVICE)
+                pools = tf.kv_pool(k, psz), tf.kv_pool(v, psz)
+                got = paged_ops.paged_attention(q, *pools, table, lens)
+                want = attention.decode_attention(q.double(), k.double(), v.double(),
+                                                  cache_len + 1)
+                worst[f"layer {i} cache_len {cache_len}"] = self.check(
+                    f"{label}: layer {i}'s route (pages of {psz}) at cache_len {cache_len} "
+                    f"== fp64 plain attention", got, want, FULL_ATOL, FULL_RTOL)
+                if cache_len == S // 2 + 3:
+                    self.expect_caught(f"{label}: layer {i}, the limit rejects the newest "
+                                       f"token dropped",
+                                       paged_ops.paged_attention(q, *pools, table, lens - 1),
+                                       want, FULL_ATOL, FULL_RTOL)
+                    self.expect_caught(f"{label}: layer {i}, the limit rejects the next "
+                                       f"sequence's pages",
+                                       paged_ops.paged_attention(q, *pools, table.roll(1, 0),
+                                                                 lens),
+                                       want, FULL_ATOL, FULL_RTOL)
+            del k, v, q, want
+        self.free()
+        return worst
 
     def serve_output(self, label, cfg, toks, logits):
         """A serve's tokens (SERVE_B, SERVE_GEN) in the vocabulary, and its
@@ -3964,6 +4205,7 @@ def main() -> int:
         smoke.paged_path(paged_decode)
         smoke.flash_path(get_config, attention)
         smoke.serve_path(tf, init_params, init_caches)
+        smoke.decode_route(tf, init_params)
         smoke.family_serve(tf, init_params, init_caches)
         smoke.model_checks(tf, init_params)
         smoke.movement_path(tf, init_params, tf.Block)

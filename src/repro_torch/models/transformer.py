@@ -32,14 +32,19 @@ captured in a CUDA graph (``launch.step.build_serve_step``).
 """
 from __future__ import annotations
 
+import functools
+import math
+
 import torch
 from torch import nn
 from torch.distributed.tensor import DTensor
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch import spans
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.streaming import checkpoint_layer
 from repro_torch.device import resolve
+from repro_torch.kernels.paged_attention import ops as paged_ops
 from repro_torch.models import attention as attn_lib
 from repro_torch.models import moe as moe_lib
 from repro_torch.models import rwkv as rwkv_lib
@@ -386,10 +391,74 @@ def _write_row(cache, row, slot) -> None:
         cache[:, slot] = row
 
 
-def _decode_attn(p, h, cfg: ModelConfig, k_cache, v_cache, cache_len, positions):
+PAGE = 64  # positions a page of the paged kernel's view, where they divide the cache
+CHUNK = 2048  # positions of one of the kernel's split-KV work items (at most)
+
+
+def paged_decode_ok(k_cache, num_heads: int) -> bool:
+    """Whether one-token attention over ``k_cache`` (..., S, Hkv, Dh) goes to
+    the paged decode kernel (``kernels.paged_attention``): a plain tensor
+    on a card, not a ``DTensor``, in bf16, with a head size the kernel
+    takes and at most ``MAX_GROUP`` query heads a KV head.  Every other
+    cache (on the CPU, in fp32, a mesh's shards) keeps the plain
+    ``attention.decode_attention_partial``."""
+    hkv, dh = k_cache.shape[-2:]
+    return (not isinstance(k_cache, DTensor) and k_cache.device.type == "cuda"
+            and k_cache.dtype == torch.bfloat16 and dh in paged_ops.HEAD_DIMS
+            and num_heads // hkv <= paged_ops.MAX_GROUP)
+
+
+@functools.cache
+def page_size(seq: int) -> int:
+    """The page of the kernel's view of a cache of ``seq`` positions, a
+    divisor of ``seq``.  The kernel loads a page in TMA boxes of gcd(page,
+    64) rows (``cp.async`` where the page is no multiple of 8) and cuts a
+    sequence into work items of whole pages, about CHUNK positions each.
+    So PAGE where it divides ``seq``; else, of the divisors up to CHUNK (and
+    ``seq`` itself up to 1.5 CHUNK, where a split would add at most one
+    short work item), the one with the largest box, the longest of those."""
+    if seq % PAGE == 0:
+        return PAGE
+    fits = [d for d in range(1, min(seq, CHUNK) + 1) if seq % d == 0]
+    if seq <= CHUNK * 3 // 2:
+        fits.append(seq)
+    return max(fits, key=lambda d: (math.gcd(d, PAGE) if d % 8 == 0 else 0, d))
+
+
+def paged_view(batch: int, seq: int, cache_len, device) -> tuple:
+    """The paged kernel's view of one step's (B, S, Hkv, Dh) layer caches,
+    the same for every layer: (page size, block table, seq_lens).
+
+    A layer's cache is a pool of B·S/psz pages of ``page_size(S)``
+    positions (``kv_pool``), read in place through the identity block
+    table.  ``seq_lens`` is ``cache_len + 1`` on the
+    device (never read on the host), which the kernel clamps to S: the
+    first min(cache_len + 1, S) slots, those a plain and a ring cache hold
+    valid (attention over a set does not depend on the order of its
+    slots)."""
+    psz = page_size(seq)
+    table = torch.arange(batch * seq // psz, dtype=torch.int32, device=device)
+    if isinstance(cache_len, torch.Tensor):
+        lens = (cache_len + 1).to(torch.int32).expand(batch).contiguous()
+    else:
+        lens = torch.full((batch,), cache_len + 1, dtype=torch.int32, device=device)
+    return psz, table.view(batch, seq // psz), lens
+
+
+def kv_pool(cache, page_size: int):
+    """A layer's (B, S, Hkv, Dh) cache as the kernel's pool (B·S/page_size,
+    page_size, Hkv, Dh): a view, no copy."""
+    return cache.view(-1, page_size, *cache.shape[2:])
+
+
+def _decode_attn(p, h, cfg: ModelConfig, k_cache, v_cache, cache_len, positions,
+                 paged=None):
     """One-token attention against a (possibly ring-buffered) cache,
     k_cache/v_cache (B,Scache,Hkv,Dh), whose row at the new token's slot is
-    overwritten in place.  ``cache_len``: an int or a 0-d device tensor."""
+    overwritten in place.  ``cache_len``: an int or a 0-d device tensor.
+    ``paged``: the step's ``paged_view`` where ``paged_decode_ok`` holds,
+    which routes the attention to the paged kernel; None keeps the plain
+    attention."""
     B = h.shape[0]
     q, k_new, v_new = _project_qkv(p, h, cfg)
     q, k_new = _rotate(q, k_new, positions, cfg)
@@ -402,6 +471,13 @@ def _decode_attn(p, h, cfg: ModelConfig, k_cache, v_cache, cache_len, positions)
         slot = cache_len % S_cache if ring else min(cache_len, S_cache - 1)
     _write_row(k_cache, k_new[:, 0], slot)
     _write_row(v_cache, v_new[:, 0], slot)
+    if paged is not None:
+        spans.count("attn.decode_kernel")
+        psz, table, lens = paged
+        out = paged_ops.paged_attention(q[:, 0].contiguous(), kv_pool(k_cache, psz),
+                                        kv_pool(v_cache, psz), table, lens)
+        return merge_dims(out, (B, 1, -1), -1, cfg.num_heads) @ p.wo
+    spans.count("attn.decode_plain")
     # keep the cache SEQUENCE-sharded through the attention math (split-KV)
     k_cache = shard_hint(k_cache, (BATCH, "model", UNC, UNC))
     v_cache = shard_hint(v_cache, (BATCH, "model", UNC, UNC))
@@ -416,11 +492,12 @@ def _decode_attn(p, h, cfg: ModelConfig, k_cache, v_cache, cache_len, positions)
     return merge_dims(out, (B, 1, -1), -1, cfg.num_heads) @ p.wo
 
 
-def decode_block(p, h, cfg: ModelConfig, cache: dict, cache_len, positions):
+def decode_block(p, h, cfg: ModelConfig, cache: dict, cache_len, positions, paged=None):
     """One layer, one token. h: (B,1,d); ``cache`` holds this layer's
-    slices of the stacked caches, which are written in place."""
+    slices of the stacked caches, which are written in place; ``paged`` as
+    ``_decode_attn`` takes it."""
     hn = apply_norm(h, p.ln1, cfg.norm)
-    y = _decode_attn(p.attn, hn, cfg, cache["k"], cache["v"], cache_len, positions)
+    y = _decode_attn(p.attn, hn, cfg, cache["k"], cache["v"], cache_len, positions, paged)
     if cfg.family == "hybrid":
         m_out, (conv_s, ssm_s) = ssm_lib.mamba(p.mamba, hn, state=(cache["conv"], cache["ssm"]))
         y = 0.5 * (apply_norm(y, p.attn_out_norm, "rmsnorm")
@@ -443,6 +520,12 @@ def decode_step(params, batch, caches, cache_len, cfg: ModelConfig):
     no host read and no shape of it depends on the data.  The new token's
     K/V row and the new recurrent states are written into ``caches`` in
     place, and the same dict is returned.
+
+    Where the K/V caches are plain bf16 tensors on a card that the paged
+    decode kernel takes (``paged_decode_ok``), every layer's attention goes
+    to that kernel, which reads the cache in place through one
+    ``paged_view`` built for the step (counter ``attn.decode_kernel`` a
+    layer); other caches take the plain attention (``attn.decode_plain``).
     """
     if isinstance(cache_len, torch.Tensor):
         dev = next(iter(caches.values())).device
@@ -465,6 +548,9 @@ def decode_step(params, batch, caches, cache_len, cfg: ModelConfig):
         positions = torch.full((B, 1), cache_len, dtype=torch.long, device=x.device)
     if cfg.rope == "mrope":
         positions = text_mrope_positions(positions)
+    k = caches.get("k")
+    paged = (paged_view(k.shape[1], k.shape[2], cache_len, k.device)
+             if k is not None and paged_decode_ok(k, cfg.num_heads) else None)
     for i, blk in enumerate(params.blocks):
         cache = {name: c[i] for name, c in caches.items()}
         if cfg.family == "ssm":
@@ -473,7 +559,7 @@ def decode_step(params, batch, caches, cache_len, cfg: ModelConfig):
             for c, n in zip(state, new):
                 c.copy_(n)
         else:
-            x = decode_block(blk, x, cfg, cache, cache_len, positions)
+            x = decode_block(blk, x, cfg, cache, cache_len, positions, paged)
     x = apply_norm(x, params.final_norm, cfg.norm)
     return logits_fn(params, x, cfg)[:, 0], caches
 
