@@ -1,18 +1,20 @@
 """The least time the card could take: FLOPs and bytes from shapes at the
 published peaks of one H100 SXM (NVIDIA's data sheet, dense, at 700 W).
 
-Serving (prefill then decode): the prefill's FLOPs are 2 x the matrix
-weights x the prompt tokens, the head at the last position, and QK^T and
-PV over the causal band (the window where it is shorter); a decode step's
-bytes are the layers' weights, the final norm, the head, the tokens'
+Serving (prefill then decode): the prefill's FLOPs are 2 x the layers'
+matrix parameters a token multiplies by x the prompt tokens, the head at the
+last position, QK^T and PV over the causal band (the window where it is
+shorter) and the form's other mixers; a decode step's bytes are what the
+form's layers read at the batch, the final norm, the head, the tokens'
 embedding rows and the live K/V rows (their mean over the steps).
 Training: 6 x the matrix parameters x the tokens, and causal QK^T and PV
 forward and backward (3 x 4 Hq Dh S(S+1)/2 L B, the window capping each
-query's keys); remat's recompute is not counted.
+query's keys) and 3 x the other mixers; remat's recompute is not counted.
+What depends on the block is the form's (``modelspec.load_form``).
 """
 from __future__ import annotations
 
-from perfbench.modelspec import ModelSpec, block_shapes, matrix_params
+from perfbench.modelspec import ModelSpec, form_of, matrix_params, numel
 
 PEAK_BF16_FLOPS = 989e12     # dense tensor cores
 PEAK_BYTES_PER_S = 3.35e12   # HBM3
@@ -27,16 +29,18 @@ def _pairs(prompt: int, window: int | None) -> int:
 
 
 def prefill_flops(m: ModelSpec, batch: int, prompt: int) -> float:
-    layer_mats = matrix_params(m) - m.vocab * m.d
+    form = form_of(m)
+    layer_mats = m.layers * form.layer_matrix_params(m)
     return (2 * layer_mats * batch * prompt + 2 * m.d * m.vocab * batch
-            + 4 * m.heads * m.head_dim * _pairs(prompt, m.window) * m.layers * batch)
+            + 4 * m.heads * m.head_dim * _pairs(prompt, m.window) * m.layers * batch
+            + m.layers * form.mixer_flops(m) * batch * prompt)
 
 
 def decode_step_bytes(m: ModelSpec, batch: int, prompt: int, gen: int) -> float:
-    elt = DTYPE_BYTES[m.dtype]
-    layer = sum(_numel(s) for s, _, _ in block_shapes(m).values())
-    norm = m.d * (2 if m.norm == "layernorm" else 1)
-    weights = (m.layers * layer + norm + m.vocab * m.d + batch * m.d) * elt
+    form, elt = form_of(m), DTYPE_BYTES[m.dtype]
+    norm = sum(numel(s) for s, kind, _ in form.top_shapes(m).values() if kind != "normal")
+    weights = (m.layers * form.decode_layer_bytes(m, batch)
+               + (norm + m.vocab * m.d + batch * m.d) * elt)
     live = min(prompt + gen / 2, m.window or prompt + gen)
     kv = 2 * m.layers * batch * live * m.kv_heads * m.head_dim * elt
     return weights + kv
@@ -51,11 +55,5 @@ def serve_call_bound_s(m: ModelSpec, batch: int, prompt: int, gen: int) -> float
 
 def train_step_flops(m: ModelSpec, batch: int, seq: int) -> float:
     return (6 * matrix_params(m) * batch * seq
-            + 12 * m.heads * m.head_dim * _pairs(seq, m.window) * m.layers * batch)
-
-
-def _numel(shape) -> int:
-    n = 1
-    for x in shape:
-        n *= x
-    return n
+            + 12 * m.heads * m.head_dim * _pairs(seq, m.window) * m.layers * batch
+            + 3 * m.layers * form_of(m).mixer_flops(m) * batch * seq)

@@ -37,7 +37,6 @@ def control_numbers(bench, cell, file, traffic, seed: int, seconds: float, dev) 
     from perfbench import check, serve_cell, train_cell
     from perfbench import weights as W
     from perfbench.modelspec import spec_of
-    from perfbench.reference import model as ref_model
     from perfbench.reference import train as ref_train
     from perfbench.reference.precision import FP8, FP32, exact_fp32
 
@@ -56,12 +55,12 @@ def control_numbers(bench, cell, file, traffic, seed: int, seconds: float, dev) 
         return check.train_numbers(gaps)
     facts, _ = serve_cell.run(m, file, traffic, seed, seconds, False, dev, time.perf_counter())
     calls = facts["served_calls"]
-    rows = serve_cell.sample(seed, len(calls), traffic["batch"], traffic["sample_rows"])
-    ids, _ = serve_cell.rows_of(m, seed, traffic, calls, rows, dev)
-    P = traffic["prompt_len"]
-    ref = ref_model.served_logits(m, seed, ids[:, :-1], P - 1, FP32, traffic["ref_block_rows"])
-    low = ref_model.served_logits(m, seed, ids[:, :-1], P - 1, FP8, traffic["ref_block_rows"])
-    return {"logit_gap": float(check.logit_gaps(ref, low.argmax(-1)).max())}
+    rows = serve_cell.sample(seed, calls, traffic["sample_rows"])
+    ids, served = serve_cell.rows_of(m, seed, calls, rows, dev)
+    ref, low = (serve_cell.reference_logits(m, seed, ids, served, mm, traffic["ref_block_rows"])
+                for mm in (FP32, FP8))
+    return {"logit_gap": max(float(check.logit_gaps(r, x.argmax(-1)).max())
+                             for r, x in zip(ref, low))}
 
 
 def main(argv=None) -> int:

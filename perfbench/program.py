@@ -1,6 +1,6 @@
 """The system under test, set up from a configuration file: the port's
-config of the same model with the file's sizes, and the seed's weights
-copied into the port's own ``Transformer``."""
+config of the same model with the file's sizes and the fields its form
+sets, and the seed's weights copied into the port's own ``Transformer``."""
 from __future__ import annotations
 
 import dataclasses
@@ -8,9 +8,13 @@ import dataclasses
 import torch
 
 from perfbench import weights as W
-from perfbench.modelspec import ModelSpec, block_shapes, top_shapes
+from perfbench.modelspec import ModelSpec, form_of
 
-PORT_ACTIVATIONS = {(True, "silu"): "swiglu", (False, "gelu_tanh"): "gelu"}
+
+def port_model(m: ModelSpec, model):
+    """The port's ``ModelConfig`` ``model`` with the file's depth and the
+    fields ``m``'s form sets."""
+    return dataclasses.replace(model, num_layers=m.layers, **form_of(m).port_fields(m))
 
 
 def arch_config(m: ModelSpec, file: dict):
@@ -20,15 +24,7 @@ def arch_config(m: ModelSpec, file: dict):
     from repro_torch.optim import AdamWConfig
 
     arch = get_config(m.arch)
-    if arch.model.family != "dense":
-        raise ValueError(f"{m.arch} is a {arch.model.family} model; the reference is dense")
-    model = dataclasses.replace(
-        arch.model, num_layers=m.layers, d_model=m.d, num_heads=m.heads,
-        num_kv_heads=m.kv_heads, head_dim=m.head_dim, d_ff=m.d_ff, vocab_size=m.vocab,
-        activation=PORT_ACTIVATIONS[(m.gated, m.act)], norm=m.norm, qkv_bias=m.qkv_bias,
-        rope="rope", rope_theta=m.rope_theta, sliding_window=m.window,
-        tie_embeddings=m.tie, dtype=m.dtype)
-    arch = dataclasses.replace(arch, model=model)
+    arch = dataclasses.replace(arch, model=port_model(m, arch.model))
     t = file.get("train")
     if t is not None:
         adam = AdamWConfig()
@@ -58,8 +54,9 @@ def serve_config_matches(m: ModelSpec, arch) -> None:
 
 
 def param_names(m: ModelSpec) -> list[str]:
-    names = [f"blocks.{i}.{k}" for i in range(m.layers) for k in block_shapes(m)]
-    return names + list(top_shapes(m))
+    form = form_of(m)
+    names = [f"blocks.{i}.{k}" for i in range(m.layers) for k in form.block_shapes(m)]
+    return names + list(form.top_shapes(m))
 
 
 @torch.no_grad()

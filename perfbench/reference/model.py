@@ -1,13 +1,12 @@
-"""The decoder's forward pass in plain PyTorch and fp32.
+"""The decoder's pieces in plain PyTorch and fp32, and its forward pass.
 
-One layer, as the published architectures have it: pre-norm (RMSNorm for
-qwen2, LayerNorm for starcoder2), GQA attention with rotate-half RoPE over
-the head (theta from the config), causal softmax in fp32 with scale
-Dh^-1/2 (and the sliding window where the config has one and the sequence
-reaches it), the output projection, the residual; then the MLP (gated SiLU
-for qwen2, GELU-tanh for starcoder2) and the residual.  Noted departures,
-shared with the port as run: starcoder2's linear layers carry no biases
-(``use_bias`` is false in its file).
+The pieces that the forms (``perfbench/forms/``) build their layers from:
+the norms (RMSNorm, LayerNorm), the activations, rotate-half RoPE over the
+head (theta from the config), and the pre-norm GQA attention sublayer:
+causal softmax in fp32 with scale Dh^-1/2 (and the sliding window where
+the config has one and the sequence reaches it), the output projection,
+the residual.  The layer itself is the form's (``form.layer``), as the
+published architecture has it.
 
 Layers are made one at a time from the seed (``perfbench.weights``) and
 applied to all rows, a block of rows at a time, so that the reference fits
@@ -20,7 +19,7 @@ import math
 import torch
 
 from perfbench import weights as W
-from perfbench.modelspec import ModelSpec
+from perfbench.modelspec import ModelSpec, form_of
 from perfbench.reference.precision import FP32
 
 
@@ -49,8 +48,9 @@ def rope(x, positions, theta: float):
     return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
 
 
-def layer(p: dict, x, m: ModelSpec, mm=FP32):
-    """One decoder layer over x (R, S, d), positions 0..S-1."""
+def attention(p: dict, x, m: ModelSpec, mm=FP32):
+    """The attention sublayer over x (R, S, d), positions 0..S-1: the
+    pre-norm ``ln1``, GQA attention, ``attn.wo`` and the residual."""
     r, s, _ = x.shape
     pos = torch.arange(s, device=x.device)
     h = norm(x, p, "ln1", m)
@@ -69,13 +69,7 @@ def layer(p: dict, x, m: ModelSpec, mm=FP32):
         keep = keep & (pos[None, :] > pos[:, None] - m.window)
     scores = scores.masked_fill(~keep, float("-inf"))
     o = mm(torch.softmax(scores, dim=-1), v.transpose(1, 2))         # (R, H, S, Dh)
-    x = x + mm(o.transpose(1, 2).reshape(r, s, m.heads * m.head_dim), p["attn.wo"])
-    h = norm(x, p, "ln2", m)
-    if m.gated:
-        u = activation(mm(h, p["mlp.w_gate"]), m.act) * mm(h, p["mlp.w_up"])
-    else:
-        u = activation(mm(h, p["mlp.w_up"]), m.act)
-    return x + mm(u, p["mlp.w_down"])
+    return x + mm(o.transpose(1, 2).reshape(r, s, m.heads * m.head_dim), p["attn.wo"])
 
 
 def head(x, top: dict, m: ModelSpec, mm=FP32):
@@ -95,12 +89,12 @@ def served_logits(m: ModelSpec, seed: int, ids: torch.Tensor, first: int, mm=FP3
     """The logits (R, S - first, vocab) at positions first..S-1 of the
     sequences ``ids`` (R, S), computed layer by layer, each layer made
     from ``seed`` and applied to ``block_rows`` rows at a time."""
-    dev = ids.device
+    form, dev = form_of(m), ids.device
     top = fp32(W.top(m, seed, dev))
     x = top["embedding"][ids.long()]
     for i in range(m.layers):
         p = fp32(W.block(m, i, seed, dev))
         for r in range(0, x.shape[0], block_rows):
-            x[r:r + block_rows] = layer(p, x[r:r + block_rows], m, mm)
+            x[r:r + block_rows] = form.layer(p, x[r:r + block_rows], m, mm)
         del p
-    return head(x[:, first:], top, m, mm)
+    return form.head(x[:, first:], top, m, mm)

@@ -25,8 +25,8 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from perfbench import weights as W
-from perfbench.modelspec import ModelSpec
-from perfbench.reference.model import fp32, head, layer
+from perfbench.modelspec import ModelSpec, form_of
+from perfbench.reference.model import fp32
 from perfbench.reference.precision import FP32
 
 PER_LAYER_MIN_LAYERS = 8
@@ -54,12 +54,14 @@ def initial(m: ModelSpec, seed: int, device) -> dict[str, torch.Tensor]:
 
 
 def loss_sum(params: dict, tokens, labels, m: ModelSpec, mm=FP32):
-    """The summed next-token NLL of the rows, each layer checkpointed."""
+    """The summed next-token NLL of the rows, each of the form's layers
+    checkpointed."""
+    form = form_of(m)
     x = params["embedding"][tokens.long()]
     for i in range(m.layers):
         p = {k[len(f"blocks.{i}."):]: v for k, v in params.items() if k.startswith(f"blocks.{i}.")}
-        x = checkpoint(functools.partial(layer, p, m=m, mm=mm), x, use_reentrant=False)
-    logits = head(x, params, m, mm)
+        x = checkpoint(functools.partial(form.layer, p, m=m, mm=mm), x, use_reentrant=False)
+    logits = form.head(x, params, m, mm)
     nll = torch.logsumexp(logits, -1) - logits.gather(-1, labels.long()[..., None])[..., 0]
     return nll.sum()
 

@@ -32,6 +32,7 @@ def port_sized(monkeypatch):
     import repro_torch.launch.serve as serve_mod
 
     from perfbench.modelspec import spec_of
+    from perfbench.program import port_model
 
     real, files = configs.get_config, {}
 
@@ -39,12 +40,7 @@ def port_sized(monkeypatch):
         arch = real(name)
         if name not in files:
             return arch
-        m = spec_of(name, files[name])
-        model = dataclasses.replace(arch.model, num_layers=m.layers, d_model=m.d,
-                                    num_heads=m.heads, num_kv_heads=m.kv_heads,
-                                    head_dim=m.head_dim, d_ff=m.d_ff, vocab_size=m.vocab,
-                                    dtype=m.dtype, sliding_window=m.window,
-                                    rope_theta=m.rope_theta)
+        model = port_model(spec_of(name, files[name]), arch.model)
         return dataclasses.replace(arch, model=model)
 
     monkeypatch.setattr(configs, "get_config", get_config)

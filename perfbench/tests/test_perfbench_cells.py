@@ -16,6 +16,8 @@ from perfbench.tests.helpers import tiny_file
 BENCH = spec.load_benchmark()
 CPU = torch.device("cpu")
 SMALL = {"decode": {"batch": 2, "prompt_len": 16, "gen": 8, "sample_rows": 64},
+         "decode-wide": {"batch": 3, "prompt_len": {"shuffled": [12, 17, 20]}, "gen": 8,
+                         "sample_rows": 4},
          "prefill": {"batch": 2, "prompt_len": 24, "gen": 3, "sample_rows": 64},
          "train": {"batch": 4, "seq_len": 16}, "train-offload": {"batch": 4, "seq_len": 16}}
 
@@ -41,7 +43,8 @@ def test_a_sound_run_is_correct(tiny_port, cell):
 @pytest.mark.parametrize("cell, fault", [
     ("starcoder2-3b.train", "frozen_state"), ("starcoder2-3b.train-offload", "frozen_state"),
     ("starcoder2-3b.train", "half_batch"), ("starcoder2-3b.train-offload", "half_batch"),
-    ("qwen2-7b.decode", "altered_token"), ("qwen2-7b.prefill", "altered_token")])
+    ("qwen2-7b.decode", "altered_token"), ("qwen2-7b.decode-wide", "altered_token"),
+    ("qwen2-7b.prefill", "altered_token")])
 def test_each_fault_the_cell_can_have_is_caught(tiny_port, cell, fault):
     with faults.planted(fault):
         res = run(cell)

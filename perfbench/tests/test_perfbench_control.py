@@ -25,7 +25,7 @@ def test_the_control_fails_a_training_cell(tiny_port, cell):
     assert not check.judge(numbers, spec.load_check(cell)["limits"]), numbers
 
 
-@pytest.mark.parametrize("cell", ["qwen2-7b.decode", "qwen2-7b.prefill"])
+@pytest.mark.parametrize("cell", ["qwen2-7b.decode", "qwen2-7b.decode-wide", "qwen2-7b.prefill"])
 def test_the_control_fails_a_serving_cell(port_sized, cell):
     """Logits spread with width, depth and vocabulary, and the widest gap
     with the tokens compared: d 1,024, 8 layers, 65,536 ids, 768 tokens."""
@@ -35,6 +35,8 @@ def test_the_control_fails_a_serving_cell(port_sized, cell):
                 intermediate_size=3072, vocab_size=65536)
     port_sized[w["config"]] = file
     traffic = spec.load_traffic(w["traffic"])
-    traffic.update(batch=8, prompt_len=32, gen=96, sample_rows=8)
+    drawn = not isinstance(traffic["prompt_len"], int)
+    traffic.update(batch=8, prompt_len={"shuffled": [24, 32]} if drawn else 32, gen=96,
+                   sample_rows=8)
     numbers = control_numbers(BENCH, w, file, traffic, 2**31 + 9, 0.01, CPU)
     assert not check.judge(numbers, spec.load_check(cell)["limits"]), numbers

@@ -43,8 +43,11 @@ def test_no_file_imports_jax_or_the_jax_package(path):
     assert not _imports(path) & guard.FORBIDDEN
 
 
-@pytest.mark.parametrize("path", sorted((PKG / "reference").glob("*.py")), ids=lambda p: p.name)
+@pytest.mark.parametrize("path", sorted((PKG / "reference").glob("*.py"))
+                         + sorted((PKG / "forms").glob("*.py")),
+                         ids=lambda p: str(p.relative_to(PKG)))
 def test_the_reference_imports_nothing_of_the_port(path):
+    """The reference and the forms, whose layers are the reference's."""
     assert "repro_torch" not in _imports(path)
 
 
@@ -65,7 +68,8 @@ def test_the_harness_and_the_port_load_no_jax():
 
 def test_the_reference_loads_nothing_of_the_port():
     loaded = _loaded_by("import perfbench.reference.model, perfbench.reference.train, "
-                        "perfbench.check, perfbench.bounds")
+                        "perfbench.check, perfbench.bounds, perfbench.forms.qwen2, "
+                        "perfbench.forms.starcoder2")
     assert not {guard.top_level(n) for n in loaded} & (guard.FORBIDDEN | {"repro_torch"})
 
 

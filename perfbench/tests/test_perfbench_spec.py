@@ -109,18 +109,13 @@ def _digest(root) -> dict:
             for p in sorted(root.rglob("*")) if p.is_file() and "__pycache__" not in p.parts}
 
 
-def test_a_new_config_mix_and_metric_need_no_edit(tmp_path):
-    """A copy of the benchmark gains a configuration, a traffic mix, limits
-    and a metric as new files and entries; a tiny cell of them runs on the
-    CPU and reports the new metric, and no file that was there changed."""
-    shutil.copytree(ROOT / "perfbench", tmp_path / "perfbench",
-                    ignore=shutil.ignore_patterns("__pycache__"))
-    before = _digest(tmp_path / "perfbench")
+def _new_train_cell(new, bench) -> tuple[str, str, str, float]:
+    """A configuration, a train mix, limits and a metric, and the
+    optimizer's time split for it as an entry with no file."""
     file = spec.load_config("starcoder2-3b")
     file.update(hidden_size=64, num_hidden_layers=2, num_attention_heads=4,
                 num_key_value_heads=2, intermediate_size=128, vocab_size=256,
                 torch_dtype="float32", train_global_batch=2, train_seq_len=16)
-    new = tmp_path / "perfbench"
     (new / "configs" / "tiny-coder.json").write_text(json.dumps(file))
     (new / "traffic" / "tiny-train.json").write_text(json.dumps(
         {"kind": "train", "why": "tiny", "batch": 2, "seq_len": 16, "plan": "card",
@@ -133,7 +128,6 @@ def test_a_new_config_mix_and_metric_need_no_edit(tmp_path):
         def read(facts):
             return facts["steps"] / facts["window_s"] if facts["kind"] == "train" else None
     '''))
-    bench = json.loads(json.dumps(BENCH))
     bench["configs"].append({"name": "tiny-coder", "source": "test",
                              "file": "perfbench/configs/tiny-coder.json",
                              "reduced": file["reduced"], "why": "tiny"})
@@ -145,11 +139,125 @@ def test_a_new_config_mix_and_metric_need_no_edit(tmp_path):
     for m in bench["end_to_end"] + bench["per_layer"]:
         if m["name"] in ("train_tokens_per_s", "mfu.train"):
             m["workloads"].append("tiny-coder.tiny-train")
-    # the optimizer's time split for the new metric: an entry, no file
     bench["per_layer"].append({"name": "optimizer_ms.steps", "unit": "ms", "better": "lower",
                                "source": "program_span", "layer": "optim",
                                "moves": "train_steps_per_s",
                                "workloads": ["tiny-coder.tiny-train"]})
+    after = '''
+        reader = spec.load_reader("optimizer_ms.steps", "train")
+        assert reader.__file__.endswith("optimizer_ms.train.py"), reader.__file__
+        assert set(res["metrics"]) == {"setup_s", "train_tokens_per_s", "train_steps_per_s"}
+    '''
+    return "tiny-coder.tiny-train", "", after, 0.2
+
+
+# The port's MoE (models/moe.py) splits a prefill's B x P tokens into groups
+# of 512 (one group where there are fewer) and gives each expert C = max(k,
+# int(group k 1.25 / E)) (token, choice) pairs a group; a decode step is one
+# group of the B rows with factor 2.0.  At top-2 of 4 a group of T tokens
+# gives C = max(2, int(0.625 T)), and seeded weights route up to 0.64 T of
+# a prompt's tokens to one expert: so the prompts here are one row of one
+# or two tokens, a group in which no expert can pass C = 2, and the decode
+# steps (one row, C = 2) do the rest.  The script counts, layer by layer,
+# each expert's pairs in every call's prompt from the reference's router
+# and holds them to C.
+MOE = {"num_local_experts": 4, "num_experts_per_tok": 2}
+MOE_BATCH, MOE_PROMPT = 1, [2, 1]
+
+
+def _new_routed_serve_cell(new, bench) -> tuple[str, str, str, float]:
+    """A routed-expert form, its configuration, a serve mix whose prompt
+    length is drawn per call, and limits."""
+    shutil.copy(ROOT / "perfbench" / "tests" / "tiny_moe_form.py", new / "forms" / "mixtral.py")
+    # rms_norm_eps as the port runs it: its RMSNorm takes 1e-6 whatever the
+    # config states (Mixtral publishes 1e-5)
+    file = {"arch": "mixtral-8x22b", "model_type": "mixtral", "hidden_act": "silu",
+            "hidden_size": 64, "intermediate_size": 96, "num_hidden_layers": 2,
+            "num_attention_heads": 4, "num_key_value_heads": 2, "vocab_size": 256,
+            "rms_norm_eps": 1e-6, "rope_theta": 1e6, "sliding_window": None,
+            "tie_word_embeddings": False, "torch_dtype": "float32", "reduced": [], **MOE}
+    (new / "configs" / "tiny-moe.json").write_text(json.dumps(file))
+    (new / "traffic" / "tiny-chat.json").write_text(json.dumps(
+        {"kind": "serve", "why": "tiny", "batch": MOE_BATCH,
+         "prompt_len": {"shuffled": MOE_PROMPT}, "gen": 12, "sample_rows": 3,
+         "ref_block_rows": 2}))
+    (new / "checks" / "tiny-moe.tiny-chat.json").write_text(json.dumps(
+        {"limits": {"logit_gap": 1e-4}}))
+    bench["configs"].append({"name": "tiny-moe", "source": "test",
+                             "file": "perfbench/configs/tiny-moe.json", "reduced": [],
+                             "why": "tiny"})
+    bench["workloads"].append({"name": "tiny-moe.tiny-chat", "config": "tiny-moe",
+                               "traffic": "tiny-chat", "chips": 1, "why": "tiny"})
+    for m in bench["end_to_end"] + bench["per_layer"]:
+        if m["name"] in ("serve_tokens_per_s", "itl_ms_p95", "mfu.serve"):
+            m["workloads"].append("tiny-moe.tiny-chat")
+    # the host clock advances 1 ms a read: the window holds the same calls
+    # however loaded the CPU is
+    before = f'''
+        import dataclasses, itertools
+        ticks = itertools.count()
+        time.perf_counter = lambda: next(ticks) * 1e-3
+        import repro_torch.configs as configs
+        import repro_torch.launch.serve as serve_mod
+        from perfbench.modelspec import spec_of
+        from perfbench.program import port_model
+        real = configs.get_config
+        def get_config(name):
+            arch = real(name)
+            if name != "mixtral-8x22b":
+                return arch
+            m = spec_of(name, spec.load_config("tiny-moe"))
+            return dataclasses.replace(arch, model=port_model(m, arch.model))
+        configs.get_config = serve_mod.get_config = get_config
+    '''
+    after = f'''
+        from perfbench import serve_cell, weights as W
+        from perfbench.modelspec import form_of
+        from perfbench.reference import model as ref_model
+        m = spec_of("tiny-moe", spec.load_config("tiny-moe"))
+        form, traffic, chosen = form_of(m), spec.load_traffic("tiny-chat"), []
+        real_route = form.route
+        def route(p, h, m, mm):
+            gates, experts = real_route(p, h, m, mm)
+            chosen.append(experts)
+            return gates, experts
+        form.route = route
+        k, e = {MOE["num_experts_per_tok"]}, {MOE["num_local_experts"]}
+        assert max(k, int({MOE_BATCH} * k * 2.0 / e)) >= {MOE_BATCH}  # no decode drops
+        calls = res["attempted"] // {MOE_BATCH}
+        shapes = [serve_cell.call_shape(traffic, 7, i) for i in range(calls)]
+        assert len(shapes) > 1 and len({{s["prompt_len"] for s in shapes}}) > 1, shapes
+        for i, s in enumerate(shapes):
+            tokens = s["batch"] * s["prompt_len"]
+            assert tokens <= 512, tokens  # one group
+            cap = max(k, int(tokens * k * 1.25 / e))
+            chosen.clear()
+            ids = W.tokens(7, "prompt", i, (s["batch"], s["prompt_len"]), m.vocab,
+                           torch.device("cpu"))
+            ref_model.served_logits(m, 7, ids, s["prompt_len"] - 1, block_rows=s["batch"])
+            assert len(chosen) == m.layers
+            for layer in chosen:
+                most = int(torch.bincount(layer.flatten(), minlength=e).max())
+                assert most <= cap, (i, most, cap)
+        assert set(res["metrics"]) == {{"setup_s", "serve_tokens_per_s", "itl_ms_p95"}}
+    '''
+    return "tiny-moe.tiny-chat", before, after, 0.5
+
+
+@pytest.mark.parametrize("case", ["a train mix and a metric",
+                                  "a routed-expert form and a per-call serve mix"])
+def test_a_new_config_mix_and_metric_need_no_edit(tmp_path, case):
+    """A copy of the benchmark gains, as new files and entries, a
+    configuration, a traffic mix and limits, and a metric or a form; a tiny
+    cell of them runs on the CPU and is correct, and no file that was there
+    changed."""
+    shutil.copytree(ROOT / "perfbench", tmp_path / "perfbench",
+                    ignore=shutil.ignore_patterns("__pycache__"))
+    new = tmp_path / "perfbench"
+    before = _digest(new)
+    bench = json.loads(json.dumps(BENCH))
+    add = _new_train_cell if case == "a train mix and a metric" else _new_routed_serve_cell
+    cell, setup, after, seconds = add(new, bench)
     (tmp_path / "BENCHMARK.json").write_text(json.dumps(bench))
     script = textwrap.dedent(f'''
         import json, sys, time, torch
@@ -158,19 +266,16 @@ def test_a_new_config_mix_and_metric_need_no_edit(tmp_path):
         assert spec.HERE == spec.ROOT / "perfbench" and str(spec.ROOT) == {str(tmp_path)!r}
         bench = spec.load_benchmark()
         assert spec.problems(bench) == [], spec.problems(bench)
-        cell = spec.workload(bench, "tiny-coder.tiny-train")
-        reader = spec.load_reader("optimizer_ms.steps", "train")
-        assert reader.__file__.endswith("optimizer_ms.train.py"), reader.__file__
-        res = cells.run_cell(bench, cell, spec.load_config("tiny-coder"),
-                             spec.load_traffic("tiny-train"), spec.load_check(cell["name"]),
-                             7, 0.2, False, torch.device("cpu"), time.perf_counter())
-        print(json.dumps(res))
-    ''')
+        cell = spec.workload(bench, {cell!r})
+    ''') + textwrap.dedent(setup) + textwrap.dedent(f'''
+        res = cells.run_cell(bench, cell, spec.load_config(cell["config"]),
+                             spec.load_traffic(cell["traffic"]), spec.load_check(cell["name"]),
+                             7, {seconds}, False, torch.device("cpu"), time.perf_counter())
+    ''') + textwrap.dedent(after) + "print(json.dumps(res))\n"
     out = subprocess.run([sys.executable, "-c", script], capture_output=True, text=True,
                          cwd=tmp_path, timeout=300)
     assert out.returncode == 0, out.stderr[-3000:]
     res = json.loads(out.stdout.strip().splitlines()[-1])
     assert res["correct"], res
-    assert set(res["metrics"]) == {"setup_s", "train_tokens_per_s", "train_steps_per_s"}
     after = _digest(new)
     assert {k: v for k, v in after.items() if k in before} == before

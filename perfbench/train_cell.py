@@ -105,11 +105,15 @@ def run(m, file: dict, traffic: dict, seed: int, seconds: float, traced: bool, d
 
     losses, n = [], traffic["checked_steps"]
     t_open = time.perf_counter()
-    while not losses or time.perf_counter() - t_open < seconds:
+    ends = []
+    while not losses or ends[-1] - t_open < seconds:
         params, state, metrics = step(params, state, batch(n), first + n)
         losses.append(float(metrics["loss"]))
+        ends.append(time.perf_counter())
         n += 1
-    window_s = time.perf_counter() - t_open
+    window_s = ends[-1] - t_open
+    print("step s (host clock): " + " ".join(
+        f"{b - a:.4f}" for a, b in zip([t_open] + ends, ends)), file=sys.stderr)
     peak = torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" else 0
     facts = {
         "kind": "train", "setup_s": t_open - t_start, "window_s": window_s,

@@ -13,7 +13,7 @@ import hashlib
 
 import torch
 
-from perfbench.modelspec import ModelSpec, block_shapes, top_shapes
+from perfbench.modelspec import ModelSpec, form_of, numel
 
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
@@ -27,7 +27,7 @@ def seed_of(seed: int, *tags) -> int:
 
 def _make(shapes: dict, seed: int, tag, dtype, device) -> dict[str, torch.Tensor]:
     g = torch.Generator(device=device).manual_seed(seed_of(seed, *tag))
-    sizes = [_numel(s) for s, _, _ in shapes.values()]
+    sizes = [numel(s) for s, _, _ in shapes.values()]
     flat = torch.randn(sum(sizes), generator=g, dtype=dtype, device=device)
     out = {}
     for (name, (shape, kind, scale)), v in zip(shapes.items(), flat.split(sizes)):
@@ -37,13 +37,13 @@ def _make(shapes: dict, seed: int, tag, dtype, device) -> dict[str, torch.Tensor
 
 
 def block(m: ModelSpec, i: int, seed: int, device, dtype=None) -> dict[str, torch.Tensor]:
-    """Layer ``i``'s tensors, named as in ``modelspec.block_shapes``."""
-    return _make(block_shapes(m), seed, ("layer", i), dtype or DTYPES[m.dtype], device)
+    """Layer ``i``'s tensors, named as in its form's ``block_shapes``."""
+    return _make(form_of(m).block_shapes(m), seed, ("layer", i), dtype or DTYPES[m.dtype], device)
 
 
 def top(m: ModelSpec, seed: int, device, dtype=None) -> dict[str, torch.Tensor]:
     """The embedding, the final norm and (untied) the head."""
-    return _make(top_shapes(m), seed, ("top",), dtype or DTYPES[m.dtype], device)
+    return _make(form_of(m).top_shapes(m), seed, ("top",), dtype or DTYPES[m.dtype], device)
 
 
 def tokens(seed: int, tag: str, index: int, shape, vocab: int, device) -> torch.Tensor:
@@ -60,9 +60,3 @@ def train_batch(seed: int, index: int, batch: int, seq: int, vocab: int, device)
     ids = tokens(seed, "batch", index, (batch, seq + 1), vocab, device)
     return {"tokens": ids[:, :-1].contiguous(), "labels": ids[:, 1:].contiguous()}
 
-
-def _numel(shape) -> int:
-    n = 1
-    for x in shape:
-        n *= x
-    return n
