@@ -46,6 +46,24 @@ def decode_step_bytes(m: ModelSpec, batch: int, prompt: int, gen: int) -> float:
     return weights + kv
 
 
+def paged_step_bytes(m: ModelSpec, batch: int, cache_len: int) -> float:
+    """The bytes one decode step at ``cache_len`` must move through decode
+    attention: every layer reads the live K and V rows (cache_len + 1, the
+    window capping them) and q, and writes the output (B x Hq x Dh).  Live
+    rows only: the pages a kernel reads past them, its partial results and
+    the block table are not counted."""
+    rows = min(cache_len + 1, m.window or cache_len + 1)
+    kv = 2 * rows * m.kv_heads * m.head_dim
+    q_out = 2 * m.heads * m.head_dim
+    return m.layers * batch * (kv + q_out) * DTYPE_BYTES[m.dtype]
+
+
+def paged_decode_bytes(m: ModelSpec, batch: int, prompt: int, gen: int) -> float:
+    """The bytes a call's gen - 1 decode steps must move through decode
+    attention, cache_len from ``prompt`` on (``paged_step_bytes``)."""
+    return sum(paged_step_bytes(m, batch, n) for n in range(prompt, prompt + gen - 1))
+
+
 def serve_call_bound_s(m: ModelSpec, batch: int, prompt: int, gen: int) -> float:
     """One serve call's least time: the prefill at the bf16 peak and its
     gen - 1 decode steps at the memory rate."""

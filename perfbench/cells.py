@@ -1,9 +1,11 @@
 """One run of one cell, from its files to the result's line."""
 from __future__ import annotations
 
+import sys
+
 import torch
 
-from perfbench import check, serve_cell, spec, train_cell
+from perfbench import check, serve_cell, spec, trace, train_cell
 from perfbench.modelspec import spec_of
 
 KINDS = {"serve": serve_cell.run, "train": train_cell.run}
@@ -18,6 +20,8 @@ def run_cell(bench: dict, cell: dict, file: dict, traffic: dict, limits: dict, s
     m = spec_of(cell["config"], file)
     facts, numbers = KINDS[traffic["kind"]](m, file, traffic, seed, seconds, traced, dev,
                                             t_start)
+    if facts["spans"] is not None:
+        print(trace.describe(facts["spans"]), file=sys.stderr)
     metrics = {}
     for entry in spec.metrics_for(bench, cell["name"], traced):
         value = spec.load_reader(entry["name"], traffic["kind"]).read(facts)

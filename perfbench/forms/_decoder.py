@@ -15,6 +15,16 @@ from perfbench.reference.precision import FP32
 # the port's activation of an MLP: (gated, the reference's kind) -> name
 PORT_ACTIVATIONS = {(True, "silu"): "swiglu", (False, "gelu_tanh"): "gelu"}
 
+# A tiny copy's sizes, which every decoder form shares: small and fp32, so
+# that the port and the reference agree to rounding on the CPU.
+TINY = {"hidden_size": 64, "num_hidden_layers": 2, "num_attention_heads": 4,
+        "num_key_value_heads": 2, "vocab_size": 256, "torch_dtype": "float32"}
+
+
+def tiny(file: dict, *, intermediate_size: int) -> dict:
+    """``file`` with ``TINY``'s sizes and the form's own MLP width."""
+    return {**file, **TINY, "intermediate_size": intermediate_size}
+
 
 def read(file: dict, *, norm: str, gated: bool, eps_key: str, acts: dict) -> dict:
     """The ``ModelSpec`` fields of a decoder's ``config.json`` keys;

@@ -13,8 +13,13 @@ from perfbench.forms._decoder import (  # noqa: F401
     top_shapes,
 )
 from perfbench.forms._decoder import read as _read
+from perfbench.forms._decoder import tiny as _tiny
 
 
 def read(file: dict) -> dict:
     return _read(file, norm="rmsnorm", gated=True, eps_key="rms_norm_eps",
                  acts={"silu": "silu"})
+
+
+def tiny(file: dict) -> dict:
+    return _tiny(file, intermediate_size=160)

@@ -13,8 +13,13 @@ from perfbench.forms._decoder import (  # noqa: F401
     top_shapes,
 )
 from perfbench.forms._decoder import read as _read
+from perfbench.forms._decoder import tiny as _tiny
 
 
 def read(file: dict) -> dict:
     return _read(file, norm="layernorm", gated=False, eps_key="norm_epsilon",
                  acts={"gelu_pytorch_tanh": "gelu_tanh"})
+
+
+def tiny(file: dict) -> dict:
+    return _tiny(file, intermediate_size=256)

@@ -58,8 +58,9 @@ def load_form(model_type: str):
     ``ModelConfig`` fields it sets), ``layer_matrix_params(m)`` (the matrix
     parameters a token multiplies by in one layer), ``decode_layer_bytes(m,
     batch)`` (the bytes of one layer's weights and recurrent state a decode
-    step of ``batch`` rows reads) and ``mixer_flops(m)`` (the forward FLOPs
-    a token spends in one layer outside its matrices and attention)."""
+    step of ``batch`` rows reads), ``mixer_flops(m)`` (the forward FLOPs
+    a token spends in one layer outside its matrices and attention) and
+    ``tiny(file)`` (the file cut to a tiny copy, which the CPU tests run)."""
     if not model_type.isidentifier() or not (FORMS_DIR / f"{model_type}.py").is_file():
         raise FileNotFoundError(f"no form perfbench/forms/{model_type}.py")
     return importlib.import_module(f"perfbench.forms.{model_type}")

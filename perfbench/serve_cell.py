@@ -26,6 +26,14 @@ once for all calls, or never is timed alike), the token before each step
 call after the first by its stamp, and the last token by the call's return.  A
 call that does not stamp one step call for each token after the first
 fails the run.
+
+With ``--trace 1``, after the window: one more call, of the round's
+median shape in every run (``traced_shape``; ``traced_call``), inside the
+program's ``spans.recording()`` with nothing profiled
+(``trace.recorded``), then the same call again under the profiler
+(``trace.profiled``), then the reference's check.  The recorded call comes
+first: a call made after the profiler has run reads slower than the
+window's.  Its token gaps are printed beside the window's.
 """
 from __future__ import annotations
 
@@ -39,6 +47,7 @@ from perfbench import bounds, check, program, trace
 from perfbench import weights as W
 from perfbench.reference import model as ref_model
 from perfbench.reference.precision import FP32, exact_fp32
+from perfbench.stats import median, percentile
 
 
 class _Stamped:
@@ -148,10 +157,21 @@ def call_shape(traffic: dict, seed: int, index: int) -> dict[str, int]:
     return shapes[order[at]]
 
 
+def _size(shape: dict) -> tuple[int, int]:
+    """A call's tokens, then its prompt: the order of shapes by size."""
+    return shape["batch"] * (shape["prompt_len"] + shape["gen"]), shape["prompt_len"]
+
+
 def largest_shape(traffic: dict) -> dict[str, int]:
     """The round's call of the most tokens (the longest prompt of those)."""
-    return max(round_shapes(traffic),
-               key=lambda s: (s["batch"] * (s["prompt_len"] + s["gen"]), s["prompt_len"]))
+    return max(round_shapes(traffic), key=_size)
+
+
+def traced_shape(traffic: dict) -> dict[str, int]:
+    """The round's call of median size (the upper of two middles): the
+    shape of every run's traced call, whatever the seed."""
+    shapes = sorted(round_shapes(traffic), key=_size)
+    return shapes[len(shapes) // 2]
 
 
 def run(m, file: dict, traffic: dict, seed: int, seconds: float, traced: bool, dev,
@@ -168,8 +188,8 @@ def run(m, file: dict, traffic: dict, seed: int, seconds: float, traced: bool, d
 
     calls = []
 
-    def call(index: int) -> dict:
-        rec, shape = {}, call_shape(traffic, seed, index)
+    def call(index: int, shape: dict) -> dict:
+        rec = {}
         B, P, G = shape["batch"], shape["prompt_len"], shape["gen"]
         t0 = time.perf_counter()
         out = serve(m.arch, reduced=False, batch=B, prompt_len=P, gen=G, seed=seed,
@@ -180,14 +200,20 @@ def run(m, file: dict, traffic: dict, seed: int, seconds: float, traced: bool, d
                 "call_s": end - t0, "prefill_ms": rec["prefill_ms"],
                 "capture_ms": rec["prefill_capture_ms"] + rec["capture_ms"]}
 
+    traced_call = profile = recording = None
     with TokenClock() as clock:
         t_open = time.perf_counter()
         per_round = len(round_shapes(traffic))
         while not calls or len(calls) % per_round or time.perf_counter() - t_open < seconds:
-            calls.append(call(len(calls)))
+            calls.append(call(len(calls), call_shape(traffic, seed, len(calls))))
         window_s = time.perf_counter() - t_open
         peak = torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" else 0
-        profile = trace.profiled(lambda: call(len(calls)), dev) if traced else None
+        if traced:
+            traced_call, kept = traced_shape(traffic), []
+            recording = trace.recorded(lambda: kept.append(call(len(calls), traced_call)))
+            profile = trace.profiled(lambda: call(len(calls), traced_call), dev)
+            print(f"token gap ms (median / p95): window {_gap_line(calls)}, "
+                  f"recorded call {_gap_line(kept)}", file=sys.stderr)
 
     print("calls (B x P + G, s, prefill ms, capture ms): " + " ".join(
         f"{c['batch']}x{c['prompt_len']}+{c['gen']}/{c['call_s']:.3f}/{c['prefill_ms']:.0f}/"
@@ -200,12 +226,13 @@ def run(m, file: dict, traffic: dict, seed: int, seconds: float, traced: bool, d
         "generated": sum(c["batch"] * c["gen"] for c in calls),
         "prompt_tokens": sum(c["batch"] * c["prompt_len"] for c in calls),
         "calls": len(calls),
-        "gaps_ms": [1e3 * (b - a) for c in calls for a, b in zip(c["times"], c["times"][1:])],
+        "gaps_ms": gaps_ms(calls),
         "prefill_ms": [c["prefill_ms"] for c in calls],
         "capture_ms": [c["capture_ms"] for c in calls],
         "call_bound_s": [bounds.serve_call_bound_s(m, c["batch"], c["prompt_len"], c["gen"])
                          for c in calls],
-        "trace": profile, "memory_peak_bytes": peak,
+        "spec": m, "traced_call": traced_call, "trace": profile, "spans": recording,
+        "memory_peak_bytes": peak,
         "attempted": sum(c["batch"] for c in calls), "failed": failed,
         "served_calls": [{k: c[k] for k in ("index", "tokens") + SHAPES} for c in calls],
     }
@@ -216,6 +243,16 @@ def run(m, file: dict, traffic: dict, seed: int, seconds: float, traced: bool, d
     numbers = {"logit_gap": served_gap(m, seed, traffic, calls, rows, dev)}
     print(f"reference: {len(rows)} rows in {time.perf_counter() - t_ref:.1f} s", file=sys.stderr)
     return facts, numbers
+
+
+def gaps_ms(calls: list) -> list[float]:
+    """Every gap between successive tokens of the calls, in ms."""
+    return [1e3 * (b - a) for c in calls for a, b in zip(c["times"], c["times"][1:])]
+
+
+def _gap_line(calls: list) -> str:
+    gaps = gaps_ms(calls)
+    return f"{median(gaps):.3f} / {percentile(gaps, 95):.3f}" if gaps else "-"
 
 
 def sample(seed: int, calls: list, k: int) -> list[tuple[int, int]]:

@@ -7,7 +7,7 @@ import dataclasses
 
 import pytest
 
-from perfbench.tests.helpers import TINY_FF, tiny_file
+from perfbench.tests.helpers import tiny_file
 
 
 def pytest_configure(config):
@@ -50,6 +50,10 @@ def port_sized(monkeypatch):
 
 @pytest.fixture
 def tiny_port(port_sized):
-    """The port's configs of the two models cut to the tiny files' sizes."""
-    for name in TINY_FF:
-        port_sized[name] = tiny_file(name)
+    """The port's config of every configuration in ``BENCHMARK.json`` cut
+    to its tiny copy's sizes, keyed by the port's name of it (``arch``)."""
+    from perfbench import spec
+
+    for config in spec.load_benchmark()["configs"]:
+        file = tiny_file(config["name"])
+        port_sized[file["arch"]] = file

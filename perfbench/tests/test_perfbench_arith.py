@@ -43,6 +43,21 @@ def test_decode_step_bytes():
     assert bounds.decode_step_bytes(SMALL, 2, 3, 4) == weights + kv
 
 
+def test_paged_decode_bytes():
+    # gen 4 at prompt 3: 3 steps at cache_len 3, 4, 5 read 4 + 5 + 6 live rows
+    # of K and V (1 kv head of 4, bf16) and write q's 2 heads x 4 out; each
+    # step reads q; 2 layers x B 2
+    kv = 2 * (4 + 5 + 6) * 1 * 4 * 2
+    q_out = 2 * 3 * 2 * 4 * 2
+    assert bounds.paged_decode_bytes(SMALL, 2, 3, 4) == 2 * 2 * (kv + q_out) == 1344
+    # the step at cache_len 3 alone: 4 rows, q and out
+    assert bounds.paged_step_bytes(SMALL, 2, 3) == 2 * 2 * (2 * 4 * 4 * 2 + 2 * 2 * 4 * 2) == 384
+    # a window of 4 keys caps the rows at 4 + 4 + 4
+    windowed = dataclasses.replace(SMALL, window=4)
+    assert bounds.paged_decode_bytes(windowed, 2, 3, 4) == 2 * 2 * (2 * 12 * 4 * 2 + q_out)
+    assert bounds.paged_decode_bytes(SMALL, 2, 3, 1) == 0
+
+
 def test_serve_call_bound():
     got = bounds.serve_call_bound_s(SMALL, 2, 3, 4)
     want = (bounds.prefill_flops(SMALL, 2, 3) / 989e12
@@ -143,6 +158,12 @@ def test_trace_reduction():
     assert got["gemm_s"] == pytest.approx(20e-9)
     assert got["host_copy_s"] == pytest.approx(10e-9)
     assert got["device_ops"][0] == ["sm90_xmma_gemm_bf16", pytest.approx(20e-9)]
+    assert got["kernel_s"] == pytest.approx({
+        "sm90_xmma_gemm_bf16": 20e-9, "elementwise": 15e-9, "late kernel": 5e-9,
+        "Memcpy HtoD (Pinned -> Device)": 10e-9, "Memcpy DtoD (Device -> Device)": 5e-9})
+    assert got["kernel_n"] == {
+        "sm90_xmma_gemm_bf16": 1, "elementwise": 1, "late kernel": 1,
+        "Memcpy HtoD (Pinned -> Device)": 1, "Memcpy DtoD (Device -> Device)": 1}
     # gaps: 0-10 (graph launch), 40-70 (the sync at its middle), 80-85, 90-95
     assert [g for _, g in got["idle_gaps"]] == pytest.approx([30e-9, 10e-9, 5e-9, 5e-9])
     assert got["idle_gaps"][0][0] == "host: cudaStreamSynchronize"
@@ -152,3 +173,78 @@ def test_trace_reduction():
 def test_trace_reduction_without_device_work_fails():
     with pytest.raises(RuntimeError, match="no device operation"):
         trace.reduce([_Event(trace.WINDOW, 0, 100, False)])
+
+
+def test_every_kernel_keeps_its_time_and_the_breakdown_its_top_ten():
+    kernels = [_Event(f"kernel {i}", 10 * i, i + 1, True) for i in range(14)]
+    again = _Event("kernel 0", 150, 1, True)
+    got = trace.reduce([_Event(trace.WINDOW, 0, 200, False)] + kernels + [again])
+    assert got["kernel_s"] == pytest.approx(
+        {f"kernel {i}": (i + 1 + (i == 0)) * 1e-9 for i in range(14)})
+    assert got["kernel_n"] == {f"kernel {i}": 1 + (i == 0) for i in range(14)}
+    assert [n for n, _ in got["device_ops"]] == [f"kernel {i}" for i in range(13, 3, -1)]
+
+
+PAGED = {"void (anonymous namespace)::tensor_core::paged_tc_kernel<128, 1>(CUtensorMap)": 6e-10,
+         "paged_merge_kernel(float const*, int const*)": 1e-10,
+         "void (anonymous namespace)::paged_decode_kernel<float, 4, 2>(float const*)": 1.024e-10,
+         "nvjet_tst_256x16_64x6_4x1_v_bz_NNT": 5e-9, "Memcpy DtoD (Device -> Device)": 1e-9}
+
+
+# launches: 2 layers x 3 steps of the work-item kernel or the CUDA-core one
+PAGED_N = dict(zip(PAGED, [4, 4, 2, 6, 1]))
+
+
+def _serve_facts(**kw):
+    facts = {"kind": "serve", "spec": SMALL, "traced_call": {"batch": 2, "prompt_len": 3, "gen": 4},
+             "trace": {"kernel_s": PAGED, "kernel_n": PAGED_N}, "spans": None}
+    return {**facts, **kw}
+
+
+def _launches(tc: int, decode: int) -> dict:
+    names = list(PAGED)
+    return {**PAGED_N, names[0]: tc, names[1]: tc, names[2]: decode}
+
+
+@pytest.mark.parametrize("name", ["paged_roofline.serve", "paged_roofline.prompt"])
+def test_paged_roofline_reads_the_paged_kernels_time_against_their_bytes(name):
+    reader = spec.load_reader(name, "serve")
+    # the gen - 1 = 3 steps: 1,344 bytes at 3.35e12 B/s over the three paged
+    # kernels' 8.024e-10 s
+    read = reader.read(_serve_facts())
+    assert read == pytest.approx(100 * 1344 / 3.35e12 / 8.024e-10)
+    assert 49 < read < 51
+    assert reader.read(_serve_facts(trace={"kernel_s": {
+        k: v for k, v in PAGED.items() if "paged" not in k}, "kernel_n": PAGED_N})) is None
+    assert reader.read(_serve_facts(trace=None)) is None
+    assert reader.read({"kind": "train", "trace": {}}) is None
+
+
+@pytest.mark.parametrize("name", ["paged_roofline.serve", "paged_roofline.prompt"])
+def test_paged_roofline_counts_the_steps_the_trace_ran(name):
+    reader = spec.load_reader(name, "serve")
+
+    def read(tc, decode):
+        return reader.read(_serve_facts(trace={"kernel_s": PAGED, "kernel_n": _launches(tc, decode)}))
+
+    # two more steps (a capture's warm-ups) at the first step's cache length
+    # 3: 1,344 + 2 x 384 bytes in the same time
+    assert read(8, 2) == pytest.approx(100 * (1344 + 2 * 384) / 3.35e12 / 8.024e-10)
+    assert read(6, 0) == pytest.approx(read(4, 2))
+    # launches that are no whole number of steps, or fewer than the call's
+    assert read(5, 2) is None
+    assert read(2, 2) is None
+
+
+def test_decode_step_ms_reads_the_median_device_time_of_serve_step():
+    reader = spec.load_reader("decode_step_ms.serve")
+    steps = {"count": 3, "host_ms": [0.1, 0.1, 0.2], "device_ms": [9.5, 30.0, 9.25]}
+    spans = {"by_name": {"serve.step": steps, "serve.token": {**steps, "device_ms": []}},
+             "counters": {}}
+    assert reader.read(_serve_facts(spans=spans)) == 9.5
+    # on the CPU (or with no span of it) nothing is timed on the card
+    no_card = {"by_name": {"serve.step": {**steps, "device_ms": []}}, "counters": {}}
+    assert reader.read(_serve_facts(spans=no_card)) is None
+    assert reader.read(_serve_facts(spans={"by_name": {}, "counters": {}})) is None
+    assert reader.read(_serve_facts()) is None
+    assert reader.read({"kind": "train", "spans": spans}) is None

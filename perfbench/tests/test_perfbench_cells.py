@@ -11,22 +11,15 @@ import pytest
 import torch
 
 from perfbench import cells, faults, spec
-from perfbench.tests.helpers import tiny_file
+from perfbench.tests.helpers import tiny_file, tiny_traffic
 
 BENCH = spec.load_benchmark()
 CPU = torch.device("cpu")
-SMALL = {"decode": {"batch": 2, "prompt_len": 16, "gen": 8, "sample_rows": 64},
-         "decode-wide": {"batch": 3, "prompt_len": {"shuffled": [12, 17, 20]}, "gen": 8,
-                         "sample_rows": 4},
-         "prefill": {"batch": 2, "prompt_len": 24, "gen": 3, "sample_rows": 64},
-         "train": {"batch": 4, "seq_len": 16}, "train-offload": {"batch": 4, "seq_len": 16}}
 
 
 def run(cell_name: str, seed: int = 2**31 + 5) -> dict:
     cell = spec.workload(BENCH, cell_name)
-    traffic = spec.load_traffic(cell["traffic"])
-    traffic.update(SMALL[cell["traffic"]])
-    return cells.run_cell(BENCH, cell, tiny_file(cell["config"]), traffic,
+    return cells.run_cell(BENCH, cell, tiny_file(cell["config"]), tiny_traffic(cell["traffic"]),
                           spec.load_check(cell_name), seed, 0.2, False, CPU, time.perf_counter())
 
 

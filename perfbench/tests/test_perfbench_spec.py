@@ -4,6 +4,7 @@ from __future__ import annotations
 
 import hashlib
 import json
+import os
 import shutil
 import subprocess
 import sys
@@ -177,12 +178,41 @@ def _new_routed_serve_cell(new, bench) -> tuple[str, str, str, float]:
             "rms_norm_eps": 1e-6, "rope_theta": 1e6, "sliding_window": None,
             "tie_word_embeddings": False, "torch_dtype": "float32", "reduced": [], **MOE}
     (new / "configs" / "tiny-moe.json").write_text(json.dumps(file))
+    # the CPU tests' copy by the rule (B 1, prompts of one token, gen 8) drops
+    # no pair either
     (new / "traffic" / "tiny-chat.json").write_text(json.dumps(
         {"kind": "serve", "why": "tiny", "batch": MOE_BATCH,
          "prompt_len": {"shuffled": MOE_PROMPT}, "gen": 12, "sample_rows": 3,
          "ref_block_rows": 2}))
     (new / "checks" / "tiny-moe.tiny-chat.json").write_text(json.dumps(
         {"limits": {"logit_gap": 1e-4}}))
+    # a reader of a span and one of every kernel's time
+    (new / "metrics" / "token_ms.serve.py").write_text(textwrap.dedent('''
+        from perfbench.stats import median
+
+        LAYER, UNIT, SOURCE = "launch.serve (entry)", "ms", "program_span"
+
+        def read(facts):
+            spans = facts.get("spans")
+            if facts["kind"] != "serve" or spans is None:
+                return None
+            return median(spans["by_name"]["serve.token"]["host_ms"])
+    '''))
+    (new / "metrics" / "expert_ms.serve.py").write_text(textwrap.dedent('''
+        LAYER, UNIT, SOURCE = "kernels (experts)", "ms", "device_trace"
+
+        def read(facts):
+            t = facts.get("trace")
+            if facts["kind"] != "serve" or t is None:
+                return None
+            return 1e3 * sum(s for name, s in t["kernel_s"].items() if "expert" in name)
+    '''))
+    for name, source, layer in (("token_ms.serve", "program_span", "launch.serve (entry)"),
+                                ("expert_ms.serve", "device_trace", "kernels (experts)")):
+        bench["per_layer"].append({"name": name, "unit": "ms", "better": "lower",
+                                   "source": source, "layer": layer,
+                                   "moves": "serve_tokens_per_s",
+                                   "workloads": ["tiny-moe.tiny-chat"]})
     bench["configs"].append({"name": "tiny-moe", "source": "test",
                              "file": "perfbench/configs/tiny-moe.json", "reduced": [],
                              "why": "tiny"})
@@ -240,6 +270,22 @@ def _new_routed_serve_cell(new, bench) -> tuple[str, str, str, float]:
                 most = int(torch.bincount(layer.flatten(), minlength=e).max())
                 assert most <= cap, (i, most, cap)
         assert set(res["metrics"]) == {{"setup_s", "serve_tokens_per_s", "itl_ms_p95"}}
+        # a traced run: the profiler (a card's) stood in for by a trace of made-up
+        # kernels; the recorded call's spans are the CPU's
+        from perfbench import trace
+        def profiled(fn, device):
+            fn()
+            return {{"window_s": 0.01, "busy_s": 0.005, "gemm_s": 0.0, "host_copy_s": 0.0,
+                     "kernel_s": {{"moe_expert_gemm": 2e-3, "gemm": 1e-3}},
+                     "device_ops": [], "idle_gaps": []}}
+        trace.profiled = profiled
+        traced = cells.run_cell(bench, cell, spec.load_config(cell["config"]), traffic,
+                                spec.load_check(cell["name"]), 7, 0.5, True,
+                                torch.device("cpu"), time.perf_counter())
+        assert traced["correct"], traced
+        assert set(traced["metrics"]) == {{"mfu.serve", "token_ms.serve", "expert_ms.serve"}}
+        assert traced["metrics"]["expert_ms.serve"]["value"] == 2.0
+        assert traced["metrics"]["token_ms.serve"]["value"] > 0
     '''
     return "tiny-moe.tiny-chat", before, after, 0.5
 
@@ -248,9 +294,10 @@ def _new_routed_serve_cell(new, bench) -> tuple[str, str, str, float]:
                                   "a routed-expert form and a per-call serve mix"])
 def test_a_new_config_mix_and_metric_need_no_edit(tmp_path, case):
     """A copy of the benchmark gains, as new files and entries, a
-    configuration, a traffic mix and limits, and a metric or a form; a tiny
-    cell of them runs on the CPU and is correct, and no file that was there
-    changed."""
+    configuration, a traffic mix and limits, and a metric or a form and
+    readers; a tiny cell of them runs on the CPU and is correct, the
+    harness's own cell and spec tests pass over the grown copy, and no file
+    that was there changed."""
     shutil.copytree(ROOT / "perfbench", tmp_path / "perfbench",
                     ignore=shutil.ignore_patterns("__pycache__"))
     new = tmp_path / "perfbench"
@@ -277,5 +324,15 @@ def test_a_new_config_mix_and_metric_need_no_edit(tmp_path, case):
     assert out.returncode == 0, out.stderr[-3000:]
     res = json.loads(out.stdout.strip().splitlines()[-1])
     assert res["correct"], res
+    # the harness's own tests over the grown copy, the new cell among them
+    tests = subprocess.run(
+        [sys.executable, "-m", "pytest", "-v", "-p", "no:cacheprovider",
+         "perfbench/tests/test_perfbench_cells.py", "perfbench/tests/test_perfbench_spec.py",
+         "--deselect",
+         "perfbench/tests/test_perfbench_spec.py::test_a_new_config_mix_and_metric_need_no_edit"],
+        capture_output=True, text=True, cwd=tmp_path, timeout=600,
+        env={**os.environ, "PYTHONPATH": str(ROOT / "src")})
+    assert tests.returncode == 0, tests.stdout[-3000:]
+    assert f"test_a_sound_run_is_correct[{cell}] PASSED" in tests.stdout, tests.stdout[-3000:]
     after = _digest(new)
     assert {k: v for k, v in after.items() if k in before} == before

@@ -72,6 +72,16 @@ def test_the_largest_shape_warms_the_largest_call():
             serve_cell.call_shape(bad, 0, 0)
 
 
+def test_the_traced_call_is_the_rounds_median_shape_whatever_the_seed():
+    # calls of 312, 544, 584, 928 and 1,008 tokens: the third
+    assert serve_cell.traced_shape(DRAWN) == {"batch": 4, "prompt_len": 130, "gen": 16}
+    # ten prompts: the upper of the two middles, 970 and 1,073
+    assert serve_cell.traced_shape(spec.load_traffic("decode-wide")) == {
+        "batch": 64, "prompt_len": 1073, "gen": 256}
+    assert serve_cell.traced_shape(spec.load_traffic("decode")) == {
+        "batch": 16, "prompt_len": 1024, "gen": 256}
+
+
 @pytest.mark.parametrize("mix", ["decode", "prefill"])
 def test_a_plain_file_draws_its_numbers_for_every_call(mix):
     traffic = spec.load_traffic(mix)

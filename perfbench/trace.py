@@ -1,8 +1,11 @@
 """One call or step under ``torch.profiler``, reduced to what the per-layer
 metrics read: the window, the union of the device's busy intervals
 (kernels, copies and fills), the GEMM kernels' and the host<->device
-copies' device time, the operations that took most time and the longest
-idle gaps, each named by the host operation that was running."""
+copies' device time, every operation's device time and count by name,
+the operations that took most time and the longest idle gaps, each named by
+the host operation that was running.  And one call or step inside the
+program's ``spans.recording()``, with no profiler, reduced to its spans'
+times and counters' totals by name (``recorded``)."""
 from __future__ import annotations
 
 import re
@@ -59,14 +62,18 @@ def reduce(events) -> dict:
     if hi > end:
         gaps.append((end, hi))
     by_name: dict[str, int] = {}
+    count: dict[str, int] = {}
     for a, b, n in device:
         by_name[n] = by_name.get(n, 0) + b - a
+        count[n] = count.get(n, 0) + 1
     longest = sorted(gaps, key=lambda g: g[0] - g[1])[:TOP]
     return {
         "window_s": (hi - lo) / 1e9,
         "busy_s": busy / 1e9,
         "gemm_s": sum(b - a for a, b, n in device if GEMM_KERNEL.search(n)) / 1e9,
         "host_copy_s": sum(b - a for a, b, n in device if HOST_COPY.search(n)) / 1e9,
+        "kernel_s": {n: t / 1e9 for n, t in by_name.items()},
+        "kernel_n": count,
         "device_ops": [[n, t / 1e9] for n, t in
                        sorted(by_name.items(), key=lambda kv: -kv[1])[:TOP]],
         "idle_gaps": [[_host_at((a + b) // 2, host), (b - a) / 1e9] for a, b in longest],
@@ -80,3 +87,44 @@ def _host_at(t: int, host: list) -> str:
         if a <= t <= b and (best is None or b - a < best[1] - best[0]):
             best = (a, b, n)
     return f"host: {best[2]}" if best else "host: between operations"
+
+
+def recorded(fn) -> dict:
+    """Runs ``fn()`` once inside the program's ``spans.recording()`` (no
+    profiler: the spans' device times are CUDA events) and reduces what it
+    kept (``summary``)."""
+    from repro_torch import spans
+
+    with spans.recording() as rec:
+        fn()
+    return summary(rec.spans)
+
+
+def summary(kept) -> dict:
+    """``by_name``: for each span name its ``count``, the host ms of each
+    (a graph's phase has none) and the device ms of each device-timed one;
+    ``counters``: each counter's total over the spans."""
+    by_name, counters = {}, {}
+    for s in kept:
+        entry = by_name.setdefault(s.name, {"count": 0, "host_ms": [], "device_ms": []})
+        entry["count"] += 1
+        if s.ms is not None:
+            entry["host_ms"].append(s.ms)
+        if s.device_ms is not None:
+            entry["device_ms"].append(s.device_ms)
+        for name, n in s.counts.items():
+            counters[name] = counters.get(name, 0) + n
+    return {"by_name": by_name, "counters": counters}
+
+
+def describe(reduced: dict) -> str:
+    """One line of a ``summary``: each span's count and median host and
+    device ms ("-" for none), then the counters."""
+    from perfbench.stats import median
+
+    def ms(values):
+        return f"{median(values):.3f}" if values else "-"
+
+    spans = " ".join(f"{n}/{e['count']}/{ms(e['host_ms'])}/{ms(e['device_ms'])}"
+                     for n, e in reduced["by_name"].items())
+    return f"spans (count/host ms/device ms): {spans}; counters: {reduced['counters']}"

@@ -17,6 +17,11 @@ the losses, the first gradient's norm a leaf from the optimizer's state
 after one step, and each leaf's change after the last, and hands the same
 objects to the window.  After the window the reference follows those
 steps from the seed's weights and batches.
+
+With ``--trace 1``, after the window: the next step under the profiler
+(``trace.profiled``; its shape is ``traced_call``), then the optimizer
+alone (``optimizer_ms``).  No step is recorded inside the program's
+``spans.recording()``: no reader reads a train span yet (``spans`` None).
 """
 from __future__ import annotations
 
@@ -121,9 +126,10 @@ def run(m, file: dict, traffic: dict, seed: int, seconds: float, traced: bool, d
         "step_flops": bounds.train_step_flops(m, B, S), "memory_peak_bytes": peak,
         "attempted": len(losses),
         "failed": sum(1 for x in losses if not math.isfinite(x)),
-        "trace": None, "optimizer_ms": None,
+        "spec": m, "traced_call": None, "trace": None, "optimizer_ms": None, "spans": None,
     }
     if traced:
+        facts["traced_call"] = {"batch": B, "seq_len": S}
         facts["trace"] = trace.profiled(lambda: step(params, state, batch(n), first + n), dev)
     del step, metrics
     if traced:
